@@ -6,8 +6,9 @@
 Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
 
   1. prints the card (nvidia-smi name and power limit, torch's name);
-  2. builds the kernel with nvcc and prints the build seconds;
-  3. holds each kernel against its plain PyTorch version on the card at
+  2. builds the kernels with nvcc, one process per source, all started
+     together, and prints the build seconds;
+  3. holds dense_match against its plain PyTorch version on the card at
      full width (tile 768, lpad 24, r1p 64, r2p 128): the first
      worklist tiles of the workload below, every score mode, and
      torch.equal on the int64 matrices;
@@ -24,7 +25,38 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      must be byte-equal to the host route's (`python -m
      compairr_tpu_torch` without COMPAIRR_ENGINE), and each dense run
      must launch the kernel;
-  6. prints one JSON line per kernel measured, the card line, and as
+  6. holds count_tiles and extract_tiles against their plain versions
+     on every tile of the full-width worklists of phases 7 to 9 (all
+     three tile classes; d = 1, 2, 3; exclude_self on and off), at tile
+     512, and on a nucleotide set with lpad 48: equal counts, and equal
+     record sets;
+  7. drives the tile route (ops.engine.find_pairs, -d 1 -i) over the
+     1M x 1M workload with 0.5 % of set 1's rows planted into a copy of
+     set 2 with one residue inserted or deleted: its pairs and distances
+     must equal the port's host route (COMPAIRR_PIGEONHOLE=all), hold
+     more than 10,000 pairs, indel pairs among them, and both kernels
+     must have launched;
+  8. the same for set 1 against itself, with substitution and indel
+     near-duplicates of its own rows planted (exclude_self, the
+     diagonal, the pad twins);
+  9. runs -d 2 under COMPAIRR_PIGEONHOLE=0 on the dense phase's data:
+     the matrix of the tile route's pairs must sum to 24,865,230 and
+     equal dense_matrix's cell for cell;
+ 10. times both tile kernels with CUDA events at phase 7's shapes (count
+     once per stream, extract once per slab, as find_pairs calls them),
+     their plain versions over the same tiles, their bounds, and
+     find_pairs' wall split by phase;
+ 11. runs the CLI's tile route on phase 5's TSVs (-m/-x/-c -d 1 -i, a
+     pairs file with --distance, -m -d 2 under COMPAIRR_PIGEONHOLE=0)
+     with no COMPAIRR_DEVICE: each run must launch both kernels and be
+     byte-equal to the host route, and one runs again as `python -m
+     compairr_tpu_torch`;
+ 12. times the tile route's routing choices against their
+     alternatives, in turns: find_pairs -d 1 -i with 128-row tiles
+     against 512-row ones at 1M and 4M rows a set (engine.BIG_TILE_ROWS),
+     and the CLI's -m -d 1 -i at 1M rows with and without the
+     find_pairs prefetch; each pair of alternatives must agree;
+ 13. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -34,12 +66,14 @@ chiprun_out/chip_smoke.json as well.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -60,6 +94,13 @@ TILE = 768
 DIFFERENCES = 2
 KERNEL_CHECKSUM = 24_865_230
 CHECK_TILES = 384  # worklist tiles of phase 3
+KERNEL_SOURCES = ("dense_match", "tile_match")
+DEVICE = "cuda"  # every device route below runs here
+# the tile route's own near-duplicates: set 1 rows planted with one
+# edit (0 substitution, 1 deletion, 2 insertion), each with its seed
+INDEL_FRAC, INDEL_SEED = 0.005, 14
+SELF_FRAC, SELF_SEED = 0.005, 15
+MIN_INDEL_PAIRS = 10_000  # the -d 1 -i run must find more pairs
 
 AA_LEN_MEAN, AA_LEN_STD = 14.5, 1.8
 LEN_LO, LEN_HI = 9, 22
@@ -133,6 +174,87 @@ def workload(n):
     return d1, d2
 
 
+def with_planted(d_src, d_dst, frac, seed, kinds):
+    """A copy of d_dst, its rows one residue wider (so that an insertion
+    fits), with ~frac of them replaced by copies of d_src rows carrying
+    one edit drawn from `kinds` (0 substitution, 1 deletion, 2
+    insertion): the same V and J, the length +-1 for an indel. d_dst
+    itself is left as it is."""
+    from dataclasses import replace
+
+    rng = np.random.default_rng(seed)
+    n = d_dst.n
+    k = max(int(n * frac), 1)
+    src = rng.choice(d_src.n, size=k, replace=False)
+    dst = rng.choice(n, size=k, replace=False)
+    kind = rng.choice(np.asarray(kinds), size=k)
+    alpha = 4 if d_dst.nucleotides else 20
+    pad = int(d_dst.pad_value)
+    width = max(d_src.seqs.shape[1], d_dst.seqs.shape[1]) + 1
+    seqs = np.full((n, width), pad, dtype=np.int8)
+    seqs[:, : d_dst.seqs.shape[1]] = d_dst.seqs
+    lengths = d_dst.lengths.copy()
+    v_no, j_no = d_dst.v_no.copy(), d_dst.j_no.copy()
+    for s, t, kd in zip(src, dst, kind):
+        row = d_src.seqs[s, : d_src.lengths[s]].tolist()
+        pos = int(rng.integers(0, len(row)))
+        if kd == 0:
+            row[pos] = (row[pos] + int(rng.integers(1, alpha))) % alpha
+        elif kd == 1 and len(row) > 1:
+            del row[pos]
+        else:
+            row.insert(pos, int(rng.integers(0, alpha)))
+        seqs[t] = pad
+        seqs[t, : len(row)] = row
+        lengths[t] = len(row)
+        v_no[t], j_no[t] = d_src.v_no[s], d_src.j_no[s]
+    return replace(
+        d_dst, seqs=seqs, lengths=lengths, v_no=v_no, j_no=j_no,
+        residues_count=int(lengths.sum()),
+        shortest=int(lengths.min()), longest=int(lengths.max()),
+    )
+
+
+def nt_pair(n, seed):
+    """Two nucleotide sets (pad residue 4, lengths 36..45, so lpad 48)
+    with 2 V x 2 J genes; set 2 holds set 1 rows with one edit each."""
+    from dataclasses import replace
+
+    rng = np.random.default_rng(seed)
+    dbs = []
+    for _ in range(2):
+        lengths = rng.integers(36, 46, size=n).astype(np.int32)
+        seqs = np.full((n, 45), 4, dtype=np.int8)
+        mask = np.arange(45)[None, :] < lengths[:, None]
+        seqs[mask] = rng.integers(0, 4, size=int(mask.sum()), dtype=np.int8)
+        db = synth_arrays(n, 4, 2, 2, int(rng.integers(1 << 30)))
+        dbs.append(replace(
+            db, nucleotides=True, seqs=seqs, lengths=lengths,
+            residues_count=int(lengths.sum()),
+            shortest=int(lengths.min()), longest=int(lengths.max()),
+        ))
+    return dbs[0], with_planted(dbs[0], dbs[1], 0.2, seed + 1, (0, 1, 2))
+
+
+@contextlib.contextmanager
+def env(**kv):
+    """os.environ with kv set (None: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def cuda_ms(fn, reps, warm=2):
     """Mean device milliseconds of fn() over reps back-to-back calls,
     from CUDA events, after warm calls."""
@@ -149,6 +271,48 @@ def cuda_ms(fn, reps, warm=2):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def parse_timing(text):
+    """[(report, {phase: seconds})] of the `[timing]` lines that the
+    port's phase timer (COMPAIRR_TIMING=1) printed into text."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("[timing] "):
+            report, _, parts = line[len("[timing] "):].rpartition(": ")
+            out.append((report, {
+                k: float(v.rstrip("s"))
+                for k, v in (kv.split("=") for kv in parts.split())
+            }))
+    return out
+
+
+def timed(fn):
+    """(fn(), wall seconds, parse_timing of what it printed) of one call
+    under COMPAIRR_TIMING=1, the card synchronised before and after."""
+    import io
+
+    import torch
+
+    err = io.StringIO()
+    with env(COMPAIRR_TIMING="1"), contextlib.redirect_stderr(err):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, parse_timing(err.getvalue())
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """obj.name set to value for the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
 
 
 def card_line():
@@ -330,6 +494,171 @@ def host_matrix(d1, d2):
     return m, len(i1)
 
 
+def tile_inputs(d1, d2, spec, dev, tile=None):
+    """The tile route's inputs as engine.find_pairs builds them: both
+    sets' rows on dev (one derive for a self-comparison) and the
+    column-major worklist streams [(work, class)]; tile=None takes the
+    route's own tile choice."""
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    t, s_extract, lpad, by_vjl, indels = E._pair_plan(d1, d2, spec,
+                                                      dev.type)
+    tile = tile or t
+    (a, _, ka), (b, _, kb) = E._sparse_inputs(d1, d2, tile, by_vjl, lpad,
+                                              dev, indels)
+    work = E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
+    eq, pm = E.classify_worklist(work, ka, d1.n, kb, d2.n, tile, tile)
+    if indels:
+        parts = [(eq & ~pm, K.CLS_HAMMING), (eq & pm, K.CLS_BOTH),
+                 (~eq & pm, K.CLS_INDEL_ONLY)]
+    else:
+        parts = [(eq, K.CLS_HAMMING)]
+    streams = [(E.order_colmajor(work[m]), c) for m, c in parts if m.any()]
+    return {"a": a, "b": b, "keys": (ka, d1.n, kb, d2.n), "tile": tile,
+            "lpad": lpad, "s_extract": s_extract, "streams": streams,
+            "spec": spec, "tiles": len(work)}
+
+
+def tile_kw(p, cls, d=None, xself=None):
+    spec = p["spec"]
+    return dict(
+        differences=spec.differences if d is None else d, cls=cls,
+        exclude_self=spec.exclude_self if xself is None else xself,
+        tile_m=p["tile"], tile_n=p["tile"],
+    )
+
+
+def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
+    """count_tiles and extract_tiles against their plain versions over
+    every tile of every stream of p: (largest count difference, number
+    of records in one record set and not the other, tiles, matches).
+    ds: the distances the Hamming class is also run at."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    worst = bad = tiles = matched = 0
+    for work, cls in p["streams"]:
+        wd = K.upload_worklist(work, p["a"]["seqs"].device)
+        for d in (ds if ds and cls == K.CLS_HAMMING else (None,)):
+            for xself in xselfs:
+                kw = tile_kw(p, cls, d, xself)
+                got = K.count_tiles(p["a"], p["b"], wd, **kw)
+                want = K.count_tiles_plain(p["a"], p["b"], wd, **kw)
+                worst = max(worst, int((got - want).abs().max()))
+                total = int(want.sum())
+                idx, bits, _ = K.extract_tiles(p["a"], p["b"], wd,
+                                               k=max(total, 1), **kw)
+                pidx, pbits = K.extract_tiles_plain(p["a"], p["b"], wd, **kw)
+                rec = (idx.astype(np.int64) << 32) | bits
+                prec = (pidx.astype(np.int64) << 32) | pbits
+                diff = len(np.setxor1d(rec, prec))
+                bad += diff
+                tiles += len(work)
+                matched += total
+                print(f"  {label}: class {cls} d={kw['differences']} "
+                      f"exclude_self={kw['exclude_self']}: {len(work)} "
+                      f"tiles, {total} matches, equal counts "
+                      f"{torch.equal(got, want)}, {len(rec)} records, "
+                      f"{diff} differ")
+    return worst, bad, tiles, matched
+
+
+def sorted_pairs(res):
+    i1, i2, dist = res
+    o = np.lexsort((i2, i1))
+    return i1[o], i2[o], (None if dist is None else dist[o])
+
+
+def pairs_equal(got, want):
+    g, w = sorted_pairs(got), sorted_pairs(want)
+    return all(
+        (a is None and b is None) or np.array_equal(a, b)
+        for a, b in zip(g, w)
+    )
+
+
+def tile_pair_counts(p, work):
+    """Per tile of work: (equal-key pairs, key-distance-1 pairs) among
+    its real rows, the pairs whose residues the kernels must read."""
+    ka, na, kb, nb = p["keys"]
+    tile = p["tile"]
+    kbr = kb[:nb]
+    out_eq = np.zeros(len(work), dtype=np.int64)
+    out_pm = np.zeros(len(work), dtype=np.int64)
+    step = max(1, (1 << 22) // tile)
+    for s in range(0, len(work), step):
+        w = work[s : s + step].astype(np.int64)
+        r = w[:, :1] + np.arange(tile)
+        valid = r < na
+        kr = ka[np.minimum(r, na - 1)]
+        c0 = w[:, 1:]
+        c1 = np.minimum(c0 + tile, nb)
+
+        def overlap(k):
+            lo = np.searchsorted(kbr, k, side="left")
+            hi = np.searchsorted(kbr, k, side="right")
+            return np.clip(np.minimum(hi, c1) - np.maximum(lo, c0), 0, None)
+
+        out_eq[s : s + step] = (overlap(kr) * valid).sum(1)
+        out_pm[s : s + step] = (
+            (overlap(kr + 1) + overlap(kr - 1)) * valid
+        ).sum(1)
+    return out_eq, out_pm
+
+
+def tile_bound(p, groups, out_bytes, card_name):
+    """Least time the card could take for the kernel calls over groups
+    [(work, class)]: the larger of their bytes over the memory rate and
+    their operations over the int8 peak. Bytes: each row a tile touches
+    read once (its residues, its reversed residues where an indel class
+    touches it, its key, and its original index when the call excludes
+    self-pairs), the worklists read once, out_bytes written. Operations: lpad byte compares for each
+    equal-key pair of a class that tests Hamming and 2 lpad for each
+    key-distance-1 pair of a class that tests indels, counted on this
+    data (the other pairs of a tile differ in key and need no residue
+    work)."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    if card_name not in PEAKS:
+        raise ValueError(f"no published peaks for {card_name!r}")
+    peak_ops, peak_bw = PEAKS[card_name]
+    lpad, tile = p["lpad"], p["tile"]
+    n_bytes = out_bytes
+    for side, col in ((p["a"], 0), (p["b"], 1)):
+        fwd = set()
+        rev = set()
+        for work, cls in groups:
+            blocks = set(np.unique(work[:, col] // tile).tolist())
+            fwd |= blocks
+            if cls != K.CLS_HAMMING:
+                rev |= blocks
+        row = lpad + side["key"].element_size() + (
+            4 if p["spec"].exclude_self else 0)
+        n_bytes += tile * (len(fwd) * row + len(rev) * lpad)
+    ops = 0
+    eq_pairs = pm_pairs = 0
+    for work, cls in groups:
+        n_bytes += work.nbytes
+        eq, pm = tile_pair_counts(p, work)
+        if cls != K.CLS_INDEL_ONLY:
+            eq_pairs += int(eq.sum())
+            ops += lpad * int(eq.sum())
+        if cls != K.CLS_HAMMING:
+            pm_pairs += int(pm.sum())
+            ops += 2 * lpad * int(pm.sum())
+    bytes_ms = n_bytes / peak_bw * 1e3
+    ops_ms = ops / peak_ops * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "bytes_ms": bytes_ms, "ops": ops,
+        "ops_ms": ops_ms, "equal_key_pairs": eq_pairs,
+        "key_distance_1_pairs": pm_pairs,
+    }
+
+
 def write_tsv(db, path):
     """An AIRR TSV holding db's rows."""
     letters = np.frombuffer(AA_CHARS.encode(), dtype=np.uint8)
@@ -352,14 +681,22 @@ CLI_RUNS = (
 )
 
 
-def phase_cli(workdir, n, device_env):
-    """CLI end to end: each dense run in this process (so its launches
-    count) and as `python -m compairr_tpu_torch`, against the host
-    route run as `python -m compairr_tpu_torch`. Returns the launches
-    of each in-process dense run."""
-    from compairr_tpu_torch import cli
-    from compairr_tpu_torch.ops import kernels as K
+def subset(db, idx):
+    """The rows idx of db, as a SeqDB of their own."""
+    from dataclasses import replace
 
+    return replace(
+        db, **{f: getattr(db, f)[idx] for f in
+               ("seqs", "lengths", "counts", "rep_no", "v_no", "j_no")},
+        sequence_ids=[None] * len(idx), keep=[None] * len(idx),
+    )
+
+
+def cli_files(workdir, n):
+    """The CLI phases' inputs: two TSVs of n rows (set 2 holding 5 %
+    near-duplicates and 2 % exact copies of set 1 rows) and, for -x, a
+    one-repertoire query file (set 1's rows of its first
+    repertoire)."""
     d1 = synth_arrays(n, 12, 8, 4, 21)
     d2 = synth_arrays(n, 16, 8, 4, 22)
     plant_near_dups(d1, d2, 0.05, 23)
@@ -374,43 +711,54 @@ def phase_cli(workdir, n, device_env):
     d2.seqs[dst, :width] = d1.seqs[src, :width]
     for f in ("lengths", "v_no", "j_no"):
         getattr(d2, f)[dst] = getattr(d1, f)[src]
-    a, b = os.path.join(workdir, "a.tsv"), os.path.join(workdir, "b.tsv")
-    write_tsv(d1, a)
-    write_tsv(d2, b)
+    paths = {k: os.path.join(workdir, f"{k}.tsv") for k in "abq"}
+    write_tsv(d1, paths["a"])
+    write_tsv(d2, paths["b"])
+    write_tsv(subset(d1, np.nonzero(d1.rep_no == 0)[0]), paths["q"])
+    return paths
 
-    def module_run(flags, out, env_extra):
-        env = dict(os.environ)
-        env.pop("COMPAIRR_ENGINE", None)
-        env.update(env_extra)
-        proc = subprocess.run(
-            [sys.executable, "-m", "compairr_tpu_torch", *flags, a, b,
-             "-o", out],
-            cwd=HERE, env=env, capture_output=True, text=True,
-            timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"{flags}: {proc.stderr[-3000:]}")
-        with open(out, "rb") as f:
-            return f.read()
 
+def module_run(flags, inputs, out, env_extra):
+    """`python -m compairr_tpu_torch` on inputs with env_extra set
+    (None: unset) and COMPAIRR_ENGINE unset unless given: the output
+    file's bytes."""
+    env = dict(os.environ)
+    env.pop("COMPAIRR_ENGINE", None)
+    for k, v in env_extra.items():
+        if v is None:
+            env.pop(k, None)
+        else:
+            env[k] = v
+    proc = subprocess.run(
+        [sys.executable, "-m", "compairr_tpu_torch", *flags, *inputs,
+         "-o", out],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"{flags}: {proc.stderr[-3000:]}")
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def phase_cli(workdir, files, device_env):
+    """CLI end to end: each dense run in this process (so its launches
+    count) and as `python -m compairr_tpu_torch`, against the host
+    route run as `python -m compairr_tpu_torch`. Returns the launches
+    of each in-process dense run."""
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import kernels as K
+
+    a, b = files["a"], files["b"]
     launches = {}
-    saved = {k: os.environ.get(k) for k in ("COMPAIRR_ENGINE",
-                                            *device_env)}
     for tag, flags in CLI_RUNS:
-        host = module_run(flags, os.path.join(workdir, f"{tag}.host"), {})
+        host = module_run(flags, (a, b), os.path.join(workdir, f"{tag}.host"),
+                          {})
         out = os.path.join(workdir, f"{tag}.dense")
-        os.environ.update({"COMPAIRR_ENGINE": "dense", **device_env})
-        try:
+        with env(COMPAIRR_ENGINE="dense", **device_env):
             K.reset_launches()
             rc = cli.main([*flags, a, b, "-o", out, "-l",
                            os.path.join(workdir, f"{tag}.log")])
             launches[tag] = K.LAUNCHES["dense_match"]
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
         with open(out, "rb") as f:
             dense = f.read()
         if rc != 0 or dense != host:
@@ -425,7 +773,7 @@ def phase_cli(workdir, n, device_env):
               f"{launches[tag]} launch(es)")
     # the module entry point itself on the dense engine
     tag, flags = CLI_RUNS[0]
-    mod = module_run(flags, os.path.join(workdir, f"{tag}.module"),
+    mod = module_run(flags, (a, b), os.path.join(workdir, f"{tag}.module"),
                      {"COMPAIRR_ENGINE": "dense", **device_env})
     with open(os.path.join(workdir, f"{tag}.host"), "rb") as f:
         if mod != f.read():
@@ -434,6 +782,161 @@ def phase_cli(workdir, n, device_env):
     print(f"  python -m compairr_tpu_torch {' '.join(flags)} "
           "(COMPAIRR_ENGINE=dense): byte-equal")
     return launches
+
+
+# tag, flags, inputs, COMPAIRR_PIGEONHOLE of the host route's run and of
+# the tile route's run (None: unset), whether it writes a pairs file
+CLI_TILE_RUNS = (
+    ("m_d1_i", ["-m", "-d", "1", "-i"], "ab", "all", None, False),
+    ("x_d1_i", ["-x", "-d", "1", "-i"], "qb", "all", None, False),
+    ("c_d1_i", ["-c", "-d", "1", "-i"], "b", "all", None, False),
+    ("m_d1_i_pairs", ["-m", "-d", "1", "-i", "--distance"], "ab", "all",
+     None, True),
+    ("m_d2_ph0", ["-m", "-d", "2"], "ab", None, "0", False),
+)
+
+
+def phase_cli_tiles(workdir, files):
+    """The CLI's tile route: each run in this process with no
+    COMPAIRR_DEVICE (so on the card, and its launches count) against
+    the host route run as `python -m compairr_tpu_torch`; the first
+    run again as `python -m compairr_tpu_torch` on the card. Returns
+    each run's launches."""
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    launches = {}
+    for tag, flags, which, host_ph, tile_ph, pairs in CLI_TILE_RUNS:
+        inputs = [files[k] for k in which]
+
+        def run_flags(side):
+            if not pairs:
+                return flags
+            return [*flags, "-p", os.path.join(workdir, f"{tag}.{side}.pairs")]
+
+        host = module_run(run_flags("host"), inputs,
+                          os.path.join(workdir, f"{tag}.host"),
+                          {"COMPAIRR_PIGEONHOLE": host_ph,
+                           "COMPAIRR_DEVICE": None})
+        out = os.path.join(workdir, f"{tag}.tiles")
+        with env(COMPAIRR_PIGEONHOLE=tile_ph, COMPAIRR_DEVICE=None,
+                 COMPAIRR_ENGINE=None):
+            K.reset_launches()
+            rc = cli.main([*run_flags("tiles"), *inputs, "-o", out, "-l",
+                           os.path.join(workdir, f"{tag}.log")])
+            launches[tag] = {k: K.LAUNCHES[k]
+                             for k in ("count_tiles", "extract_tiles")}
+        with open(out, "rb") as f:
+            got = f.read()
+        if rc != 0 or got != host:
+            raise AssertionError(f"CLI {tag}: tile route output differs "
+                                 "from the host route")
+        if pairs:
+            with open(os.path.join(workdir, f"{tag}.host.pairs"), "rb") as f:
+                hp = f.read()
+            with open(os.path.join(workdir, f"{tag}.tiles.pairs"), "rb") as f:
+                tp = f.read()
+            if hp != tp or hp.count(b"\n") < 2:
+                raise AssertionError(f"CLI {tag}: pairs files differ or "
+                                     "are empty")
+        if host.count(b"\n") < 2:
+            raise AssertionError(f"CLI {tag}: empty output")
+        if E.LAST_ROUTE != "tiles" or min(launches[tag].values()) < 1:
+            raise AssertionError(f"CLI {tag}: route {E.LAST_ROUTE}, "
+                                 f"launches {launches[tag]}")
+        print(f"  {tag}: tiles == host ({len(host)} bytes"
+              f"{', pairs file too' if pairs else ''}), launches "
+              f"{launches[tag]}")
+    tag, flags, which, _, tile_ph, _ = CLI_TILE_RUNS[0]
+    mod = module_run(flags, [files[k] for k in which],
+                     os.path.join(workdir, f"{tag}.module"),
+                     {"COMPAIRR_PIGEONHOLE": tile_ph,
+                      "COMPAIRR_DEVICE": None})
+    with open(os.path.join(workdir, f"{tag}.host"), "rb") as f:
+        if mod != f.read():
+            raise AssertionError("python -m compairr_tpu_torch "
+                                 f"{' '.join(flags)} differs")
+    print(f"  python -m compairr_tpu_torch {' '.join(flags)} (tile route, "
+          "card by default): byte-equal")
+    return launches
+
+
+# the order of the alternatives in an A/B: each twice at each end, so
+# that a drift of the card or the host touches both alike
+AB_ORDER = (True, False, False, True, True, False, False, True)
+
+
+def phase_tile_size(a, b, spec):
+    """find_pairs on the card with 128-row tiles against 512-row ones
+    (engine.BIG_TILE_ROWS moved below or above the sets' rows), in
+    AB_ORDER after one warm call each: the pairs of both must be equal.
+    Returns each tile's walls and the phase splits of its last call."""
+    from compairr_tpu_torch.ops import engine as E
+
+    def run(small):
+        with patched(E, "BIG_TILE_ROWS", 1 << 62 if small else 0):
+            return timed(lambda: E.find_pairs(a, b, spec, device=DEVICE,
+                                              want_dist=False))
+
+    ref = {t: run(t)[0] for t in (True, False)}
+    if not pairs_equal(ref[True], ref[False]):
+        raise AssertionError("tile 128 and tile 512 give different pairs")
+    res = {128: {"wall_s": []}, 512: {"wall_s": []}}
+    for small in AB_ORDER:
+        _, wall, split = run(small)
+        r = res[128 if small else 512]
+        r["wall_s"].append(wall)
+        r["phases_s"] = split
+    for tile, r in res.items():
+        print(f"  {a.n} x {b.n} rows, tile {tile}: find_pairs walls (s) "
+              f"{r['wall_s']}, mean {np.mean(r['wall_s'])}; last call by "
+              f"phase {r['phases_s']}")
+    return res
+
+
+def phase_prefetch(workdir, a, b):
+    """The CLI's -m -d 1 -i in this process on TSVs of a and b, with the
+    find_pairs prefetch (engine.prefetch_find_pairs, started before the
+    duplicate check) and without it (the call replaced by a no-op), in
+    AB_ORDER after one warm run: the outputs must be byte-equal. Returns
+    each side's walls and the phase splits of its last run."""
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import engine as E
+
+    paths = [os.path.join(workdir, f"pf{k}.tsv") for k in "ab"]
+    write_tsv(a, paths[0])
+    write_tsv(b, paths[1])
+    out = os.path.join(workdir, "pf.out")
+
+    def run(prefetch):
+        fn = E.prefetch_find_pairs if prefetch else (lambda *_, **__: None)
+        with patched(E, "prefetch_find_pairs", fn), env(
+            COMPAIRR_DEVICE=None, COMPAIRR_PIGEONHOLE=None,
+            COMPAIRR_ENGINE=None,
+        ):
+            rc, wall, split = timed(
+                lambda: cli.main(["-m", "-d", "1", "-i", *paths, "-o", out]))
+        if rc != 0 or E.LAST_ROUTE != "tiles":
+            raise AssertionError(f"prefetch={prefetch}: rc {rc}, route "
+                                 f"{E.LAST_ROUTE}")
+        with open(out, "rb") as f:
+            return f.read(), wall, split
+
+    want = run(True)[0]
+    res = {"on": {"wall_s": []}, "off": {"wall_s": []}}
+    for prefetch in AB_ORDER:
+        got, wall, split = run(prefetch)
+        if got != want:
+            raise AssertionError(f"prefetch={prefetch}: output differs")
+        r = res["on" if prefetch else "off"]
+        r["wall_s"].append(wall)
+        r["phases_s"] = split
+    for side, r in res.items():
+        print(f"  -m -d 1 -i, {a.n} x {b.n} rows, prefetch {side}: CLI walls "
+              f"(s) {r['wall_s']}, mean {np.mean(r['wall_s'])}; last run by "
+              f"phase {r['phases_s']}")
+    return res
 
 
 def main() -> int:
@@ -467,7 +970,7 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         return out if ok else None
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     card = card_line()
 
@@ -482,11 +985,15 @@ def main() -> int:
     def p2():
         native = ensure_native()
         t0 = time.perf_counter()
-        path = K.build("dense_match", verbose=True)
+        # one nvcc for each source, all started together
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+            paths = list(pool.map(lambda n: K.build(n, verbose=True),
+                                  KERNEL_SOURCES))
         secs = time.perf_counter() - t0
-        print(f"  built {path} in {secs:.1f} s "
+        print(f"  built {', '.join(paths)} in {secs:.1f} s "
               f"(native helpers: {'yes' if native else 'no'})")
-        K.load_library("dense_match")
+        for n in KERNEL_SOURCES:
+            K.load_library(n)
         return {"build_s": secs, "native": native}
 
     report["build"] = phase("2 build", p2)
@@ -514,7 +1021,7 @@ def main() -> int:
         K.reset_launches()
         t0 = time.perf_counter()
         m = E.dense_matrix(d1, d2, spec, SCORE_PRODUCT, False,
-                           tile_m=TILE, tile_n=TILE, device="cuda")
+                           tile_m=TILE, tile_n=TILE, device=DEVICE)
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         total = float(m.sum())
@@ -564,15 +1071,240 @@ def main() -> int:
 
     report["full_width"] = phase("4 full width", p4)
 
+    workdir = tempfile.TemporaryDirectory()
+    cli_inputs = {}
+
     def p5():
-        with tempfile.TemporaryDirectory() as wd:
-            launches = phase_cli(wd, 30_000, {})
+        cli_inputs.update(cli_files(workdir.name, 30_000))
+        launches = phase_cli(workdir.name, cli_inputs, {})
         if min(launches.values()) < 1:
             raise AssertionError(f"a dense CLI run launched no kernel: "
                                  f"{launches}")
         return launches
 
     report["cli"] = phase("5 CLI end to end", p5)
+
+    # the tile route's data: the dense phase's sets as they are, a copy
+    # of set 2 with indel near-duplicates of set 1 rows, and a copy of
+    # set 1 with substitution and indel near-duplicates of its own rows
+    t0 = time.perf_counter()
+    d2i = with_planted(d1, d2, INDEL_FRAC, INDEL_SEED, (1, 2))
+    d1s = with_planted(d1, d1, SELF_FRAC, SELF_SEED, (0, 1, 2))
+    spec_i = E.MatchSpec(differences=1, indels=True, ignore_genes=False)
+    spec_self = E.MatchSpec(differences=1, indels=True, ignore_genes=False,
+                            exclude_self=True)
+    spec_d2 = E.MatchSpec(differences=DIFFERENCES, indels=False,
+                          ignore_genes=False)
+    print(f"tile data: {time.perf_counter() - t0:.1f} s to plant")
+    kept = {}
+
+    def p6():
+        cases = [
+            ("two sets -d 1 -i", (d1, d2i, spec_i), {}, {}),
+            ("self -d 1 -i", (d1s, d1s, spec_self), {},
+             {"xselfs": (True, False)}),
+            ("two sets -d 2", (d1, d2, spec_d2), {}, {"ds": (1, 2, 3)}),
+            ("two sets -d 1 -i, tile 512", (d1, d2i, spec_i), {"tile": 512},
+             {}),
+            ("nucleotides, lpad 48", (*nt_pair(20_000, 16), spec_i), {}, {}),
+        ]
+        res = {"count_max_abs_err": 0, "records_differing": 0, "cases": {}}
+        for label, (a, b, spec), tkw, ckw in cases:
+            tp = tile_inputs(a, b, spec, dev, **tkw)
+            worst, bad, tiles, matched = compare_tile_kernels(tp, label, **ckw)
+            res["count_max_abs_err"] = max(res["count_max_abs_err"], worst)
+            res["records_differing"] += bad
+            res["cases"][label] = {
+                "tiles": tp["tiles"], "tile": tp["tile"], "lpad": tp["lpad"],
+                "tiles_compared": tiles, "matches": matched,
+                "count_max_abs_err": worst, "records_differing": bad,
+            }
+            print(f"  {label}: tile {tp['tile']}, lpad {tp['lpad']}, "
+                  f"{tp['tiles']} worklist tiles, {tiles} compared, "
+                  f"{matched} matches")
+            if label == "two sets -d 1 -i":
+                kept["main"] = tp
+            if matched == 0:
+                raise AssertionError(f"{label}: no match, nothing compared")
+        if res["count_max_abs_err"] or res["records_differing"]:
+            raise AssertionError(f"tile kernels differ from plain: {res}")
+        return res
+
+    report["tile_kernels_vs_plain"] = phase("6 tile kernels vs plain", p6)
+
+    def tile_run(a, b, spec, host_env, label):
+        """find_pairs on the card against the host route: the tile
+        route's launches, pair count and wall."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = E.find_pairs(a, b, spec, device=DEVICE)
+        wall = time.perf_counter() - t0
+        launches = {k: K.LAUNCHES[k] for k in ("count_tiles", "extract_tiles")}
+        route = E.LAST_ROUTE
+        t0 = time.perf_counter()
+        with env(**host_env):
+            want = E.find_pairs(a, b, spec)
+        host_s = time.perf_counter() - t0
+        n = len(got[0])
+        indel = int((a.lengths[got[0]] != b.lengths[got[1]]).sum())
+        same = pairs_equal(got, want)
+        print(f"  {label}: {n} pairs ({indel} indel pairs), route {route}, "
+              f"launches {launches}, {wall:.2f} s; host route "
+              f"({E.LAST_ROUTE}) {len(want[0])} pairs in {host_s:.2f} s; "
+              f"pairs and distances equal: {same}")
+        if not same:
+            raise AssertionError(f"{label}: pairs differ from the host route")
+        if route != "tiles" or min(launches.values()) < 1:
+            raise AssertionError(f"{label}: route {route}, launches {launches}")
+        if indel == 0:
+            raise AssertionError(f"{label}: no indel pair found")
+        return {"pairs": n, "indel_pairs": indel, "launches": launches,
+                "wall_s": wall, "host_s": host_s}
+
+    def p7():
+        res = tile_run(d1, d2i, spec_i, {"COMPAIRR_PIGEONHOLE": "all"},
+                       "two sets -d 1 -i")
+        if res["pairs"] <= MIN_INDEL_PAIRS:
+            raise AssertionError(f"{res['pairs']} pairs, want more than "
+                                 f"{MIN_INDEL_PAIRS}")
+        return res
+
+    report["tiles_full_width"] = phase("7 tiles full width -d 1 -i", p7)
+
+    def p8():
+        res = tile_run(d1s, d1s, spec_i, {"COMPAIRR_PIGEONHOLE": "all"},
+                       "self -d 1 -i")
+        if res["pairs"] <= d1s.n:
+            raise AssertionError("the self-comparison found only its "
+                                 "diagonal")
+        return res
+
+    report["tiles_self"] = phase("8 tiles self-comparison -d 1 -i", p8)
+
+    def p9():
+        from compairr_tpu_torch.core.score import pair_scores
+
+        with env(COMPAIRR_PIGEONHOLE="0"):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            i1, i2, _ = E.find_pairs(d1, d2, spec_d2, device=DEVICE,
+                                     want_dist=False)
+            launches = {k: K.LAUNCHES[k]
+                        for k in ("count_tiles", "extract_tiles")}
+        route = E.LAST_ROUTE
+        m = np.zeros((d1.repertoire_count, d2.repertoire_count))
+        np.add.at(m, (d1.rep_no[i1], d2.rep_no[i2]),
+                  pair_scores(d1.counts[i1], d2.counts[i2], SCORE_PRODUCT,
+                              False))
+        dense = E.dense_matrix(d1, d2, spec_d2, SCORE_PRODUCT, False,
+                               tile_m=TILE, tile_n=TILE, device=DEVICE)
+        same = np.array_equal(m, dense)
+        print(f"  -d 2, COMPAIRR_PIGEONHOLE=0: route {route}, {len(i1)} "
+              f"pairs, launches {launches}, matrix sum {m.sum():.0f} (want "
+              f"{KERNEL_CHECKSUM}), equal to dense_matrix's: {same}")
+        if m.sum() != KERNEL_CHECKSUM or not same:
+            raise AssertionError("the tile route's matrix differs")
+        if route != "tiles" or min(launches.values()) < 1:
+            raise AssertionError(f"route {route}, launches {launches}")
+        return {"pairs": len(i1), "matrix_sum": float(m.sum()),
+                "launches": launches}
+
+    report["tiles_vs_dense"] = phase("9 tile route vs dense engine", p9)
+
+    def p10():
+        tp = kept.get("main") or tile_inputs(d1, d2i, spec_i, dev)
+        a, b = tp["a"], tp["b"]
+        count_ms = count_plain_ms = 0.0
+        filtered = []
+        for work, cls in tp["streams"]:
+            wd = K.upload_worklist(work, dev)
+            kw = tile_kw(tp, cls)
+            ms = cuda_ms(lambda: K.count_tiles(a, b, wd, **kw), reps=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            K.count_tiles_plain(a, b, wd, **kw)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            counts = K.count_tiles(a, b, wd, **kw).cpu().numpy()
+            nz = counts > 0
+            filtered.append((work[nz], counts[nz], cls))
+            count_ms += ms
+            count_plain_ms += pms
+            print(f"  count_tiles class {cls}: {len(work)} tiles, "
+                  f"{ms:.4f} ms (CUDA events, 10 launches), plain "
+                  f"{pms:.1f} ms")
+        total = sum(int(c.sum()) for _, c, _ in filtered)
+        k_cap = E.extract_capacity(total, tp["tile"])
+        slabs = [
+            (fw[s0:s1], cls, k)
+            for fw, tc, cls in filtered
+            for s0, s1, k in E.pack_slabs(tc, tp["s_extract"], k_cap)
+        ]
+        extract_ms = extract_plain_ms = 0.0
+        words = 0
+        for slab, cls, k in slabs:
+            wd = K.upload_worklist(slab, dev)
+            kw = tile_kw(tp, cls)
+            ms = cuda_ms(lambda: K.extract_tiles(a, b, wd, k=k, **kw),
+                         reps=5)
+            words += K.extract_tiles(a, b, wd, k=k, **kw)[2]
+            t0 = time.perf_counter()
+            K.extract_tiles_plain(a, b, wd, **kw)
+            pms = (time.perf_counter() - t0) * 1e3
+            extract_ms += ms
+            extract_plain_ms += pms
+            print(f"  extract_tiles class {cls}: slab of {len(slab)} tiles, "
+                  f"k {k}, {ms:.4f} ms (CUDA events, 5 calls, copy-back "
+                  f"included), plain {pms:.1f} ms")
+        cb = tile_bound(tp, tp["streams"],
+                        4 * sum(len(w) for w, _ in tp["streams"]), name)
+        eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
+                        8 * words + 4 * len(slabs), name)
+        _, wall, split = timed(
+            lambda: E.find_pairs(d1, d2i, spec_i, device=DEVICE))
+        for label, ms, pms, bd in (("count_tiles", count_ms, count_plain_ms,
+                                    cb),
+                                   ("extract_tiles", extract_ms,
+                                    extract_plain_ms, eb)):
+            print(f"  {label}: {ms:.4f} ms a find_pairs call, plain "
+                  f"{pms:.1f} ms, bound {bd['bound_ms']:.6f} ms by "
+                  f"{bd['bound_by']} ({bd['bytes']} bytes -> "
+                  f"{bd['bytes_ms']:.6f} ms; {bd['equal_key_pairs']} "
+                  f"equal-key and {bd['key_distance_1_pairs']} key-distance-1 "
+                  f"pairs, {bd['ops']} ops -> {bd['ops_ms']:.6f} ms)")
+        print(f"  find_pairs end to end {wall:.6f} s, by phase (s): {split}")
+        return {
+            "tiles": tp["tiles"], "streams": [
+                (len(w), c) for w, c in tp["streams"]],
+            "count_ms": count_ms, "count_plain_ms": count_plain_ms,
+            "count_bound": cb, "extract_ms": extract_ms,
+            "extract_plain_ms": extract_plain_ms, "extract_bound": eb,
+            "slabs": len(slabs), "words": words, "matches": total,
+            "find_pairs_s": wall, "find_pairs_phases_s": split,
+        }
+
+    report["tile_timing"] = phase("10 tile kernel timing", p10)
+
+    def p11():
+        if not cli_inputs:
+            cli_inputs.update(cli_files(workdir.name, 30_000))
+        return phase_cli_tiles(workdir.name, cli_inputs)
+
+    report["cli_tiles"] = phase("11 CLI tile route", p11)
+
+    def p12():
+        res = {"tile_size": {
+            f"{N_ROWS}": phase_tile_size(d1, d2i, spec_i)}}
+        a4, b4 = workload(4 * N_ROWS)
+        b4 = with_planted(a4, b4, INDEL_FRAC, INDEL_SEED, (1, 2))
+        res["tile_size"][f"{4 * N_ROWS}"] = phase_tile_size(a4, b4, spec_i)
+        del a4, b4
+        res["prefetch"] = phase_prefetch(workdir.name, d1, d2i)
+        return res
+
+    report["routing"] = phase("12 routing choices A/B", p12)
+    workdir.cleanup()
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
@@ -586,6 +1318,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
         return 1
     fw = report["full_width"]
+    tv, kv = report["tile_timing"], report["tile_kernels_vs_plain"]
+    tl = report["tiles_full_width"]["launches"]
     kernels = [{
         "name": "dense_match",
         "route": "cuda",
@@ -600,6 +1334,25 @@ def main() -> int:
         "bound_by": fw["bound_by"],
         "library_ms": None,
     }]
+    # max_abs_err: the largest count difference for count_tiles, the
+    # records in one record set and not the other for extract_tiles
+    for kname, line, err, key in (
+        ("count_tiles", 1513, kv["count_max_abs_err"], "count"),
+        ("extract_tiles", 1683, kv["records_differing"], "extract"),
+    ):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "compairr_tpu_torch/csrc/tile_match.cu",
+            "replaces": f"compairr_tpu/ops/pallas_kernels.py:{line}",
+            "launches": tl[kname],
+            "max_abs_err": err,
+            "ms": tv[f"{key}_ms"],
+            "plain_ms": tv[f"{key}_plain_ms"],
+            "bound_ms": tv[f"{key}_bound"]["bound_ms"],
+            "bound_by": tv[f"{key}_bound"]["bound_by"],
+            "library_ms": None,
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

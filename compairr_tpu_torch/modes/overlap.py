@@ -225,6 +225,17 @@ def overlap(
             "score exactly; using the default engine\n"
         )
         use_dense = False
+    # start the tile route's device work now (ops/engine.py
+    # prefetch_find_pairs) so it overlaps the host-side duplicate check
+    # below. COMPAIRR_ENGINE=dense never consumes it, so it is skipped.
+    if not use_dense:
+        from ..ops.engine import prefetch_find_pairs
+
+        prefetch_find_pairs(
+            d1, d2, spec,
+            want_dist=pairsfile is not None and opt.distance,
+        )
+    tm.lap("prefetch")
 
     # ---- duplicate warnings (overlap.cc:838-874) ----
     # at d=0 the match join needs the same (sequence, genes) grouping

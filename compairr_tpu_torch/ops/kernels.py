@@ -1,20 +1,24 @@
 """Device layouts and the hand-written kernels of the device routes.
 
 Port of the parts of compairr_tpu/ops/pallas_kernels.py that the dense
-engine runs:
+engine and the sparse tile route run:
 
   * the device derive (pallas_kernels.py:2049-2493): the host packs
     residues 6 five-bit codes to an int32 word (_pack_residues /
     _packed_upload); the device gathers the rows into key-sorted order
     and unpacks them (_gathered_seqs / _unpack_residues) and gathers
-    the repertoire and count rows (device_args_raw). Torch ops, not
-    kernels. Substitution runs need no reversed rows and the kernel
-    reads residues, so no one-hot rows are derived.
+    the repertoire and count rows (device_args_raw, the dense engine's)
+    or reverses the rows within their lengths and derives the key and
+    original-index rows (device_rows_raw, the tile route's). Torch ops,
+    not kernels. No one-hot rows are derived: the kernels read residues.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
     the v3 kernel's eligibility without the TPU's memory gates.
   * dense_match: the wrapper of csrc/dense_match.cu, which replaces the
     v3 dense kernel (pallas_kernels.py:970), with its launch counter
     and its plain PyTorch version (dense_match_plain).
+  * count_tiles and extract_tiles: the wrappers of csrc/tile_match.cu,
+    which replaces the count and extract kernels
+    (pallas_kernels.py:1513, :1683), with their plain versions.
   * the nvcc build of csrc/*.cu into build/ and the ctypes loader.
 
 A wrapper takes the plain version only for tensors on the CPU; for
@@ -49,12 +53,19 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run reads them to prove its path)
-LAUNCHES = {"dense_match": 0}
+LAUNCHES = {"dense_match": 0, "count_tiles": 0, "extract_tiles": 0}
+_LAUNCHES_LOCK = threading.Lock()  # a prefetch worker launches too
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 # --------------------------------------------------------------------
@@ -169,6 +180,91 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
         "key32": up(k32),
         "rep": up(_shrink(db.rep_no, -1, m)).index_select(0, o).to(torch.int32),
         "cnt": up(cnt).index_select(0, o),
+    }
+
+
+# the key rows are int32 while every real key of both sets is below
+# this, with the salted pad band above them (pallas_kernels._KEY_FUSE_MAX);
+# otherwise int64, with the band at _KEY64_BAND
+_KEY_FUSE_MAX = 1 << 29
+_KEY64_BAND = 1 << 62
+
+
+def wide_keys(*real_keys: np.ndarray) -> bool:
+    """Whether a tile-route run needs int64 key rows: some real key of
+    either set is at or above 2^29. One choice for both sets of a run,
+    so that the kernels always get two key rows of one type."""
+    return any(len(k) and int(k.max()) >= _KEY_FUSE_MAX for k in real_keys)
+
+
+def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
+                   pad_val: int) -> torch.Tensor:
+    """Each row reversed within its length, pad residues after it
+    (pallas_kernels._seqs_chunk); row-chunked like _gathered_seqs."""
+    npad, lpad = seqs.shape
+    pos = torch.arange(lpad, device=seqs.device)[None, :]
+    out = torch.empty_like(seqs)
+    for s in range(0, npad, _DERIVE_CHUNK):
+        ln = lengths[s : s + _DERIVE_CHUNK, None]
+        idx = (ln - 1 - pos).clamp(0, lpad - 1)
+        rev = seqs[s : s + len(ln)].gather(1, idx)
+        out[s : s + len(ln)] = torch.where(
+            pos < ln, rev, torch.full_like(rev, pad_val)
+        )
+    return out
+
+
+def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
+                    indels: bool, sort_key: np.ndarray, pad_salt: int,
+                    device, *, wide: bool) -> dict:
+    """Upload a SeqDB's raw arrays (plus one all-pad sentinel row) and
+    derive the key-sorted layouts the tile kernels read, on `device`
+    (pallas_kernels.device_rows_raw with _gather_sparse_key_fn and
+    _gather_sparse_fn):
+
+      seqs   int8  [npad, lpad]  residues, pad rows all pad residue
+      rseqs  int8  [npad, lpad]  rows reversed within their lengths
+                                 (None unless indels)
+      key    int32 [npad]        bucket key (JAX's key32 row); int64
+                                 when wide (wide_keys of both sets)
+      orig   int32 [npad]        original row index, pads -1
+
+    Pad keys are unique, 4 apart, in a band above every real key:
+    2^29 + 2 + pad_salt + 4i (2^62 + ... for int64 rows). pad_salt is 0
+    for set 1 and 2 for set 2, so no pad ever key-matches a row of
+    either set or sits at key distance 1 from one; only a pad and its
+    own twin in a self-comparison share a key, and exclude_self drops
+    that pair through orig. The lengths of the reversal come from the
+    key's low 16 bits (garbage on pads, whose rows are all pad)."""
+    n = db.n
+    pad_val = int(db.pad_value)
+    m = _canon_src(n + 1)
+    order_full = np.full(npad, n, dtype=np.int64)
+    order_full[:n] = order
+    if not wide and wide_keys(sort_key[:n]):
+        raise ValueError("a bucket key is >= 2^29: the key rows must be wide")
+    key = np.empty(npad, dtype=np.int64 if wide else np.int32)
+    key[:n] = sort_key[:n]
+    key[n:] = (
+        (_KEY64_BAND if wide else _KEY_FUSE_MAX) + 2 + pad_salt
+        + 4 * np.arange(npad - n, dtype=key.dtype)
+    )
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    o = up(order_full)
+    k = up(key)
+    seqs = _gathered_seqs(up(_packed_upload(db, m, lpad, pad_val)), o, lpad)
+    rseqs = None
+    if indels:
+        lengths = (k & 0xFFFF).clamp(0, lpad)
+        rseqs = _reversed_rows(seqs, lengths, pad_val)
+    return {
+        "seqs": seqs,
+        "rseqs": rseqs,
+        "key": k,
+        "orig": torch.where(o >= n, -1, o).to(torch.int32),
     }
 
 
@@ -393,8 +489,278 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
             f"dense_match launch failed: CUDA error {err} "
             f"({lib.dense_match_error_string(err).decode()})"
         )
-    LAUNCHES["dense_match"] += 1
+    _count_launch("dense_match")
     return out
+
+
+# --------------------------------------------------------------------
+# count_tiles / extract_tiles: kernel wrappers and plain versions
+# --------------------------------------------------------------------
+
+# tile classes of the kernels (csrc/tile_match.cu TileClass): the
+# streams engine.find_pairs splits its worklist into
+CLS_HAMMING, CLS_BOTH, CLS_INDEL_ONLY = 0, 1, 2
+
+# elements of a plain version's [tiles, TM, TN, lpad] compare per step
+_PLAIN_ELEMS = 1 << 26
+
+
+def _first_mismatch_plain(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """[B, TM, TN] position of the first differing residue of every
+    row pair, lpad when the rows are equal."""
+    neq = sa[:, :, None, :] != sb[:, None, :, :]
+    first = neq.to(torch.uint8).argmax(-1)  # the first maximal index
+    return torch.where(neq.any(-1), first, neq.shape[-1])
+
+
+def _match_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
+                       differences: int, cls: int, exclude_self: bool,
+                       tile_m: int, tile_n: int) -> torch.Tensor:
+    """bool [B, TM, TN] match masks of the tiles work [B, 2]: the match
+    criterion of csrc/tile_match.cu (pallas_kernels._cached_key_match)."""
+    dev = work.device
+    ra = work[:, :1].long() + torch.arange(tile_m, device=dev)
+    cb = work[:, 1:].long() + torch.arange(tile_n, device=dev)
+    ka = a["key"][ra].long()[:, :, None]
+    kb = b["key"][cb].long()[:, None, :]
+    sa, sb = a["seqs"][ra], b["seqs"][cb]
+    hit = torch.zeros((len(work), tile_m, tile_n), dtype=torch.bool,
+                      device=dev)
+    if cls != CLS_INDEL_ONLY:
+        diff = (sa[:, :, None, :] != sb[:, None, :, :]).sum(-1)
+        hit |= (ka == kb) & (diff <= differences)
+    if cls != CLS_HAMMING:
+        pre = _first_mismatch_plain(sa, sb)
+        suf = _first_mismatch_plain(a["rseqs"][ra], b["rseqs"][cb])
+        minlen = torch.minimum(ka & 0xFFFF, kb & 0xFFFF)
+        hit |= ((ka - kb).abs() == 1) & (pre + suf >= minlen)
+    if exclude_self:
+        hit &= a["orig"][ra][:, :, None] != b["orig"][cb][:, None, :]
+    return hit
+
+
+def _plain_batches(work: torch.Tensor, tile_m: int, tile_n: int,
+                   lpad: int):
+    step = max(1, _PLAIN_ELEMS // (tile_m * tile_n * lpad))
+    for s in range(0, len(work), step):
+        yield s, work[s : s + step]
+
+
+def count_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
+                      differences: int, cls: int, exclude_self: bool,
+                      tile_m: int, tile_n: int) -> torch.Tensor:
+    """Plain PyTorch version of the count_tiles kernel: int32 [T]
+    match counts, a few hundred tiles a step."""
+    lpad = a["seqs"].shape[1]
+    out = torch.zeros(len(work), dtype=torch.int32, device=work.device)
+    for s, w in _plain_batches(work, tile_m, tile_n, lpad):
+        hit = _match_tiles_plain(
+            a, b, w, differences=differences, cls=cls,
+            exclude_self=exclude_self, tile_m=tile_m, tile_n=tile_n,
+        )
+        out[s : s + len(w)] = hit.sum((1, 2)).to(torch.int32)
+    return out
+
+
+def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
+                        differences: int, cls: int, exclude_self: bool,
+                        tile_m: int, tile_n: int):
+    """Plain PyTorch version of the extract_tiles kernel: the nonzero
+    packed match words of the tiles as host arrays (word_idx int32,
+    word_bits uint32), in ascending word_idx."""
+    lpad = a["seqs"].shape[1]
+    wpr = tile_n // 32
+    shifts = torch.arange(32, dtype=torch.int64, device=work.device)
+    idx_parts, bit_parts = [], []
+    for s, w in _plain_batches(work, tile_m, tile_n, lpad):
+        hit = _match_tiles_plain(
+            a, b, w, differences=differences, cls=cls,
+            exclude_self=exclude_self, tile_m=tile_m, tile_n=tile_n,
+        )
+        words = (hit.view(len(w), tile_m, wpr, 32).long() << shifts).sum(-1)
+        flat = words.reshape(-1)
+        nz = flat.nonzero().squeeze(1)
+        idx_parts.append((nz + s * tile_m * wpr).cpu().numpy())
+        bit_parts.append(flat[nz].cpu().numpy())
+    if not idx_parts:
+        return np.zeros(0, np.int32), np.zeros(0, np.uint32)
+    return (np.concatenate(idx_parts).astype(np.int32),
+            np.concatenate(bit_parts).astype(np.uint32))
+
+
+def _check_sparse_side(side: dict, name: str, dev: torch.device,
+                       cls: int) -> None:
+    seqs = side["seqs"]
+    if seqs.dtype != torch.int8 or seqs.dim() != 2 or not seqs.is_contiguous():
+        raise ValueError(f"{name}['seqs'] must be a contiguous int8 [npad, lpad] tensor")
+    rows = [("seqs", seqs)]
+    if cls != CLS_HAMMING:
+        r = side.get("rseqs")
+        if r is None or r.dtype != torch.int8 or r.shape != seqs.shape or not r.is_contiguous():
+            raise ValueError(f"{name}['rseqs'] must be a contiguous int8 tensor shaped as seqs on indel tiles")
+        rows.append(("rseqs", r))
+    for k, dtypes in (("key", (torch.int32, torch.int64)), ("orig", (torch.int32,))):
+        x = side[k]
+        if x.dtype not in dtypes or x.shape != (seqs.shape[0],) or not x.is_contiguous():
+            raise ValueError(f"{name}[{k!r}] must be a contiguous {'/'.join(map(str, dtypes))} [npad] tensor")
+        rows.append((k, x))
+    for k, x in rows:
+        if x.device != dev:
+            raise ValueError(f"{name}[{k!r}] is on {x.device}, expected {dev}")
+        if dev.type == "cuda" and x.data_ptr() % 16:
+            raise ValueError(f"{name}[{k!r}] is not 16-byte aligned")
+
+
+def _check_tiles(a: dict, b: dict, work: torch.Tensor, cls: int,
+                 tile_m: int, tile_n: int) -> torch.device:
+    """The device of a tile call, after its input checks: the rows'
+    types, shapes and devices, the worklist's, and (on the device, with
+    no host sync) that every tile lies inside both row sets."""
+    dev = a["seqs"].device
+    _check_sparse_side(a, "a", dev, cls)
+    _check_sparse_side(b, "b", dev, cls)
+    lpad = a["seqs"].shape[1]
+    if b["seqs"].shape[1] != lpad:
+        raise ValueError("a and b residue rows differ in width")
+    if a["key"].dtype != b["key"].dtype:
+        raise ValueError("a and b key rows differ in type")
+    if (
+        work.dtype != torch.int32
+        or work.dim() != 2
+        or work.shape[1] != 2
+        or not work.is_contiguous()
+        or work.device != dev
+    ):
+        raise ValueError(f"work must be a contiguous int32 [T, 2] tensor on {dev}")
+    if cls not in (CLS_HAMMING, CLS_BOTH, CLS_INDEL_ONLY):
+        raise ValueError(f"unknown tile class {cls}")
+    if tile_m <= 0 or tile_n <= 0 or tile_n % 32:
+        raise ValueError(f"tiles must be positive with tile_n % 32 == 0, got {tile_m}x{tile_n}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"tile kernels run on cuda or cpu tensors, not {dev}")
+    if len(work):
+        torch._assert_async(
+            (work.min() >= 0)
+            & (work[:, 0].max() <= a["seqs"].shape[0] - tile_m)
+            & (work[:, 1].max() <= b["seqs"].shape[0] - tile_n),
+            "tile_match: a worklist tile lies outside the row sets",
+        )
+    if dev.type == "cuda" and lpad % 4:
+        raise ValueError(f"tile kernels need lpad % 4 == 0, got {lpad}")
+    return dev
+
+
+def _tile_args(a: dict, b: dict, work: torch.Tensor, cls: int, tile_m: int,
+               tile_n: int, differences: int, exclude_self: bool):
+    """The shared leading arguments of the two C launch functions (the
+    reversed rows only on the classes that read them)."""
+    indels = cls != CLS_HAMMING
+    return (
+        a["seqs"].data_ptr(), a["rseqs"].data_ptr() if indels else None,
+        a["key"].data_ptr(), a["orig"].data_ptr(),
+        b["seqs"].data_ptr(), b["rseqs"].data_ptr() if indels else None,
+        b["key"].data_ptr(), b["orig"].data_ptr(),
+        work.data_ptr(), work.shape[0], a["seqs"].shape[0],
+        b["seqs"].shape[0], tile_m, tile_n, a["seqs"].shape[1],
+        differences, cls, int(exclude_self), a["key"].element_size(),
+    )
+
+
+def _tile_library(a: dict, cls: int):
+    lib = load_library("tile_match")
+    smem = lib.tile_match_smem_bytes(
+        a["seqs"].shape[1], cls, a["key"].element_size()
+    )
+    if smem > 232448:
+        raise ValueError(
+            f"tile_match at lpad={a['seqs'].shape[1]} needs {smem} bytes "
+            "of shared memory a block, over the card's 232448"
+        )
+    return lib
+
+
+def _raise_on(lib, name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.tile_match_error_string(err).decode()})"
+        )
+
+
+def count_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                cls: int, exclude_self: bool, tile_m: int,
+                tile_n: int) -> torch.Tensor:
+    """int32 [T] match counts of the worklist tiles (work: int32 [T, 2]
+    element starts), on the rows' device, without a host sync. a/b are
+    device_rows_raw dicts; cls is the tile class (CLS_*). CUDA
+    tensors launch csrc/tile_match.cu; CPU tensors take
+    count_tiles_plain."""
+    dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
+    kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
+              tile_m=tile_m, tile_n=tile_n)
+    if dev.type == "cpu":
+        return count_tiles_plain(a, b, work, **kw)
+    out = torch.empty(work.shape[0], dtype=torch.int32, device=dev)
+    if work.shape[0] == 0:
+        return out
+    lib = _tile_library(a, cls)
+    with torch.cuda.device(dev):
+        err = lib.count_tiles_launch(
+            *_tile_args(a, b, work, cls, tile_m, tile_n, differences,
+                        exclude_self),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, "count_tiles", err)
+    _count_launch("count_tiles")
+    return out
+
+
+def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                  cls: int, exclude_self: bool, tile_m: int, tile_n: int,
+                  k: int):
+    """The nonzero packed match words of the worklist tiles, copied to
+    the host: (word_idx int32[count], word_bits uint32[count], count).
+    Bit i of a word is column 32*word + i of its row; word_idx =
+    tile * tile_m * (tile_n/32) + row * (tile_n/32) + word, the JAX
+    package's flat index. k is the capacity of the record buffer;
+    raises when the tiles hold more than k nonzero words. CUDA tensors
+    launch csrc/tile_match.cu, whose records come back in no fixed
+    order; CPU tensors take extract_tiles_plain (ascending word_idx)."""
+    dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
+    if work.shape[0] * tile_m * (tile_n // 32) >= 1 << 31:
+        raise ValueError("extract_tiles: word indices would overflow int32")
+    kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
+              tile_m=tile_m, tile_n=tile_n)
+    if dev.type == "cpu":
+        idx, bits = extract_tiles_plain(a, b, work, **kw)
+        count = len(idx)
+    else:
+        # one buffer: [counter, word_idx[k], word_bits[k]]
+        buf = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)
+        buf[0] = 0
+        if work.shape[0]:
+            lib = _tile_library(a, cls)
+            with torch.cuda.device(dev):
+                err = lib.extract_tiles_launch(
+                    *_tile_args(a, b, work, cls, tile_m, tile_n,
+                                differences, exclude_self),
+                    k, buf[1:].data_ptr(), buf[1 + k :].data_ptr(),
+                    buf.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream,
+                )
+            _raise_on(lib, "extract_tiles", err)
+            _count_launch("extract_tiles")
+        host = buf.cpu().numpy()
+        count = int(host[0])
+        n = min(count, k)
+        idx = host[1 : 1 + n].copy()
+        bits = host[1 + k : 1 + k + n].view(np.uint32).copy()
+    if count > k:
+        raise RuntimeError(
+            f"extract_tiles: {count} nonzero words exceed the record "
+            f"buffer of {k}"
+        )
+    return idx, bits, count
 
 
 # --------------------------------------------------------------------
@@ -409,6 +775,12 @@ _SIGNATURES = {
         "dense_match_launch": ([_P] * 9 + [_I] * 9 + [_P, _P], _I),
         "dense_match_smem_bytes": ([_I, _I], _I),
         "dense_match_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tile_match": {
+        "count_tiles_launch": ([_P] * 9 + [_I] * 10 + [_P, _P], _I),
+        "extract_tiles_launch": ([_P] * 9 + [_I] * 11 + [_P] * 4, _I),
+        "tile_match_smem_bytes": ([_I, _I, _I], _I),
+        "tile_match_error_string": ([_I], ctypes.c_char_p),
     },
 }
 NVCC_FLAGS = [

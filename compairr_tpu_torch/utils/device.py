@@ -1,10 +1,11 @@
 """Device choice for the device routes, and the profiler hook.
 
-Device routes (the dense engine) run on CUDA unless the caller asks
-for the CPU: an explicit device= argument on the Python entry points,
-or COMPAIRR_DEVICE=cpu for the CLI. On the CPU every kernel wrapper
-takes its plain PyTorch version. A device route that finds no CUDA
-device and no CPU request raises; it never carries on on the CPU.
+Device routes (the dense engine, the tile route of find_pairs) run on
+CUDA unless the caller asks for the CPU: an explicit device= argument
+on the Python entry points, or COMPAIRR_DEVICE=cpu for the CLI. On the
+CPU every kernel wrapper takes its plain PyTorch version. A device
+route that finds no CUDA device and no CPU request raises; it never
+carries on on the CPU.
 
 Host-only routes (dedup, d=0, pigeonhole, variant join) never call
 into this module, so they never import torch.

@@ -1,7 +1,7 @@
 """`python -m compairr_tpu_torch` against `python -m compairr_tpu` on the
-same synthetic files: the output files must be byte-equal. The dense
-engine (COMPAIRR_ENGINE=dense) runs on the CPU here through
-COMPAIRR_DEVICE=cpu, on both sides of the comparison."""
+same synthetic files: the output files must be byte-equal. The device
+routes, the dense engine (COMPAIRR_ENGINE=dense) and the tile route of
+find_pairs, run on the CPU here through COMPAIRR_DEVICE=cpu."""
 
 import os
 import subprocess
@@ -24,7 +24,9 @@ def files(tmp_path_factory):
     return {"a": a, "b": b, "q": q, "dir": d}
 
 
-def _run(pkg, args, out, env_extra):
+def _run(pkg, args, out, env_extra, stderr=None):
+    """The output file's bytes; the run's standard error is appended to
+    the list stderr when one is given."""
     env = dict(os.environ)
     # one JAX CPU device: the JAX package's multi-device dense path is
     # not what these tests compare
@@ -35,6 +37,8 @@ def _run(pkg, args, out, env_extra):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, f"{pkg} {args}: {proc.stderr[-2000:]}"
+    if stderr is not None:
+        stderr.append(proc.stderr)
     with open(out, "rb") as f:
         return f.read()
 
@@ -72,6 +76,53 @@ DENSE = {
     "dense_d0_mh": ["-m", "-d", "0", "-s", "MH", "a", "b"],
     "dense_d2_g_mean": ["-m", "-d", "2", "-g", "-s", "mean", "a", "b"],
 }
+
+
+# the sparse tile route of find_pairs, on the CPU (COMPAIRR_DEVICE=cpu):
+# -d 1 -i takes it by default and -d 2 under COMPAIRR_PIGEONHOLE=0.
+# tag -> (arguments, COMPAIRR_PIGEONHOLE of the port's run, of the JAX
+# package's run). The JAX package's own tile route on the CPU compiles
+# XLA scans for about 30 s a run, so all but the first indel run take
+# its host indel route (COMPAIRR_PIGEONHOLE=all), which its tests hold
+# to its tile route.
+TILES = {
+    "tiles_m_d1_i": (["-m", "-d", "1", "-i", "a", "b"], None, None),
+    "tiles_x_d1_i": (["-x", "-d", "1", "-i", "q", "b"], None, "all"),
+    "tiles_c_d1_i": (["-c", "-d", "1", "-i", "b"], None, "all"),
+    "tiles_m_d1_i_pairs": (
+        ["-m", "-d", "1", "-i", "-p", "pairs", "--distance", "a", "b"],
+        None, "all",
+    ),
+    "tiles_m_d2_ph0": (["-m", "-d", "2", "a", "b"], "0", "0"),
+}
+
+
+@pytest.mark.parametrize("tag", list(TILES))
+def test_cli_tile_route_byte_equal(files, tag):
+    args, port_ph, jax_ph = TILES[tag]
+
+    def side(pkg, ph, suffix, env, stderr=None):
+        if ph is not None:
+            env = dict(env, COMPAIRR_PIGEONHOLE=ph)
+        pairs = files["dir"] / f"{tag}.{suffix}.pairs"
+        argv = [
+            str(pairs) if a == "pairs" else files.get(a, a) for a in args
+        ]
+        out = _run(pkg, argv, files["dir"] / f"{tag}.{suffix}", env, stderr)
+        return out, pairs.read_bytes() if "pairs" in args else None
+
+    stderr = []
+    got = side("compairr_tpu_torch", port_ph, "torch", {
+        "COMPAIRR_DEVICE": "cpu", "COMPAIRR_TIMING": "1",
+    }, stderr)
+    want = side("compairr_tpu", jax_ph, "jax", {})
+    assert got == want
+    assert want[0].count(b"\n") > 1
+    if want[1] is not None:
+        assert want[1].count(b"\n") > 1
+    # the port resolved the run on the tile route, whose phase timing
+    # (COMPAIRR_TIMING=1) reports its worklist tiles
+    assert "[timing] find_pairs tiles=" in stderr[0]
 
 
 @pytest.mark.parametrize("tag", list(DENSE))

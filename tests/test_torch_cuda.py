@@ -120,6 +120,198 @@ def test_dense_matrix_cuda_equals_cpu(cuda, sets):
     np.testing.assert_array_equal(got, want)
 
 
+def _planted_db(n, len_range, seed, nt=False, src=None, frac=0.2,
+                v_offset=0):
+    """A SeqDB of n random rows (2 V and 2 J genes); with src, about
+    frac of its rows are copies of src rows with one substitution,
+    deletion or insertion, so that Hamming and indel matches exist at
+    any width. v_offset raises every V index (bucket keys >= 2^29 at
+    2^13)."""
+    import numpy as np
+
+    from compairr_tpu_torch.core.db import GeneTables, SeqDB
+
+    rng = np.random.default_rng(seed)
+    alpha, pad = (4, 4) if nt else (20, 20)
+    lengths = rng.integers(len_range[0], len_range[1] + 1, n).astype(np.int32)
+    width = len_range[1] + 1
+    seqs = np.full((n, width), pad, dtype=np.int8)
+    seqs[np.arange(width)[None, :] < lengths[:, None]] = rng.integers(
+        0, alpha, int(lengths.sum()), dtype=np.int8
+    )
+    v_no = rng.integers(0, 2, n).astype(np.int32)
+    j_no = rng.integers(0, 2, n).astype(np.int32)
+    if src is not None:
+        k = int(n * frac)
+        for s, t in zip(rng.choice(src.n, k, replace=False),
+                        rng.choice(n, k, replace=False)):
+            row = list(src.seqs[s, : src.lengths[s]])
+            pos = int(rng.integers(0, len(row)))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                row[pos] = (row[pos] + 1) % alpha
+            elif kind == 1 and len(row) > 1:
+                del row[pos]
+            else:
+                row.insert(pos, int(rng.integers(0, alpha)))
+            row = row[:width]
+            seqs[t] = pad
+            seqs[t, : len(row)] = row
+            lengths[t] = len(row)
+            v_no[t] = src.v_no[s] - v_offset
+            j_no[t] = src.j_no[s]
+    genes = GeneTables()
+    for name in ("V0", "V1"):
+        genes.intern_v(name)
+    for name in ("J0", "J1"):
+        genes.intern_j(name)
+    return SeqDB(
+        nucleotides=nt, seqs=seqs, lengths=lengths,
+        counts=np.ones(n, np.int64), rep_no=np.zeros(n, np.int32),
+        v_no=v_no + v_offset, j_no=j_no, sequence_ids=[None] * n,
+        keep=[None] * n, repertoire_ids=["R0"], genes=genes,
+        residues_count=int(lengths.sum()), total_dup_count=n,
+        shortest=int(lengths.min()), longest=int(lengths.max()),
+    )
+
+
+def _planted_pair(lpad, v_offset=0):
+    """Two planted sets whose rows pad to lpad (24: amino acids up to
+    23 long; 48: nucleotides up to 47 long)."""
+    nt = lpad > 32
+    lr = (lpad - 8, lpad - 2)
+    d1 = _planted_db(2000, lr, 41, nt, v_offset=v_offset)
+    return d1, _planted_db(2500, lr, 42, nt, src=d1, v_offset=v_offset)
+
+
+def _concat(d1, d2):
+    """One set holding the rows of both (so that it holds planted pairs
+    of its own)."""
+    import numpy as np
+    from dataclasses import replace
+
+    cat = {f: np.concatenate([getattr(d1, f), getattr(d2, f)])
+           for f in ("seqs", "lengths", "counts", "rep_no", "v_no", "j_no")}
+    n = d1.n + d2.n
+    return replace(d1, **cat, sequence_ids=[None] * n, keep=[None] * n,
+                   residues_count=int(cat["lengths"].sum()),
+                   total_dup_count=n,
+                   shortest=int(cat["lengths"].min()),
+                   longest=int(cat["lengths"].max()))
+
+
+def _tile_cases(d1, d2, dev, tile, self_cmp):
+    """(rows a, rows b, [(worklist, class), ...]) of a -d 1 -i tile
+    run, as engine.find_pairs builds them, plus the Hamming class over
+    every equal-key tile and the both class over every tile. A
+    self-comparison compares the rows of both sets with themselves."""
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    if self_cmp:
+        d1 = d2 = _concat(d1, d2)
+    lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
+    oa, ka, na = E.pack_keys(d1, tile, True)
+    ob, kb, nb = E.pack_keys(d2, tile, True)
+    wide = K.wide_keys(ka[: d1.n], kb[: d2.n])
+    a = K.device_rows_raw(d1, oa, na, lpad, True, ka, 0, dev, wide=wide)
+    b = a if self_cmp else K.device_rows_raw(d2, ob, nb, lpad, True, kb, 2,
+                                             dev, wide=wide)
+    work = E.worklist_from_keys(ka, d1.n, kb, d2.n, 1, tile, tile)
+    has_eq, has_pm = E.classify_worklist(work, ka, d1.n, kb, d2.n, tile,
+                                         tile)
+    streams = [
+        (work[has_eq & ~has_pm], K.CLS_HAMMING),
+        (work[has_eq & has_pm], K.CLS_BOTH),
+        (work[~has_eq & has_pm], K.CLS_INDEL_ONLY),
+        (work[has_eq], K.CLS_HAMMING),
+        (work[has_eq | has_pm], K.CLS_BOTH),
+    ]
+    return a, b, [(E.order_colmajor(w), c) for w, c in streams if len(w)]
+
+
+def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    matched = 0
+    for work, cls in streams:
+        wd = K.upload_worklist(work, dev)
+        for d in ds if cls == K.CLS_HAMMING else (1,):
+            kw = dict(differences=d, cls=cls, exclude_self=xself,
+                      tile_m=tile, tile_n=tile)
+            before = dict(K.LAUNCHES)
+            got = K.count_tiles(a, b, wd, **kw)
+            want = K.count_tiles_plain(a, b, wd, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (cls, d, tile)
+            total = int(want.sum())
+            idx, bits, count = K.extract_tiles(a, b, wd, k=max(total, 1),
+                                               **kw)
+            pidx, pbits = K.extract_tiles_plain(a, b, wd, **kw)
+            o = np.argsort(idx)
+            np.testing.assert_array_equal(idx[o], pidx)
+            np.testing.assert_array_equal(bits[o], pbits)
+            assert count == len(pidx)
+            assert K.LAUNCHES["count_tiles"] == before["count_tiles"] + 1
+            assert K.LAUNCHES["extract_tiles"] == before["extract_tiles"] + 1
+            matched += total
+    assert matched > 0
+
+
+@pytest.mark.parametrize("lpad", [24, 48])
+@pytest.mark.parametrize("tile", [128, 512])
+def test_tile_kernels_equal_plain(cuda, tile, lpad):
+    d1, d2 = _planted_pair(lpad)
+    for self_cmp, xself in ((False, False), (False, True), (True, True)):
+        a, b, streams = _tile_cases(d1, d2, cuda, tile, self_cmp)
+        assert a["seqs"].shape[1] == lpad
+        _check_tiles_equal_plain(a, b, streams, cuda, tile, xself,
+                                 ds=(1, 2, 3))
+
+
+def test_tile_kernels_big_keys_equal_plain(cuda):
+    """Keys >= 2^29: the int64 key row."""
+    d1, d2 = _planted_pair(24, v_offset=1 << 13)
+    a, b, streams = _tile_cases(d1, d2, cuda, 128, False)
+    assert a["key"].dtype.itemsize == 8
+    _check_tiles_equal_plain(a, b, streams, cuda, 128, False)
+
+
+@pytest.mark.parametrize("spec,self_cmp,pigeonhole", [
+    ((1, True, False), False, "1"),
+    ((1, True, False), True, "1"),
+    ((1, True, True), False, "1"),
+    ((2, False, False), False, "0"),
+])
+def test_find_pairs_cuda_equals_cpu(cuda, monkeypatch, spec, self_cmp,
+                                    pigeonhole):
+    import numpy as np
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    if self_cmp:
+        d1 = d2 = _concat(d1, d2)
+    monkeypatch.setenv("COMPAIRR_PIGEONHOLE", pigeonhole)
+    K.reset_launches()
+    got = E.find_pairs(d1, d2, E.MatchSpec(*spec), device="cuda")
+    assert E.LAST_ROUTE == "tiles"
+    assert K.LAUNCHES["count_tiles"] >= 1 and K.LAUNCHES["extract_tiles"] >= 1
+    want = E.find_pairs(d1, d2, E.MatchSpec(*spec), device="cpu")
+
+    def key(r):
+        o = np.lexsort((r[1], r[0]))
+        return r[0][o], r[1][o], r[2][o]
+
+    for g, w in zip(key(got), key(want)):
+        np.testing.assert_array_equal(g, w)
+    assert len(want[0]) > (d1.n if self_cmp else 0)
+
+
 def test_dense_match_rejects_cpu_worklist(cuda, sets):
     from compairr_tpu_torch.ops import kernels as K
 

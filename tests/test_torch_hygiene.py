@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor the JAX
 package (compairr_tpu), importing it leaves jax unloaded, host-only
-routes never load torch, and a device route with no CUDA device and
-no CPU request raises instead of running on the CPU."""
+routes never load torch, and a device route (the dense engine, the
+tile route of find_pairs) with no CUDA device and no CPU request
+raises instead of running on the CPU."""
 
 import ast
 import os
@@ -122,6 +123,41 @@ def test_device_route_without_cuda_raises(no_cuda):
     assert m.tolist() == [[4.0]]
 
 
+def test_tile_route_without_cuda_raises(no_cuda):
+    """find_pairs' tile route (-d 1 -i) raises the device message with
+    no CUDA and no CPU request, and runs when the CPU is asked for."""
+    from compairr_tpu_torch.core.db import GeneTables, SeqDB
+    from compairr_tpu_torch.ops.engine import MatchSpec, find_pairs
+
+    db = SeqDB(
+        nucleotides=False,
+        seqs=np.array([[0, 1, 2, 20], [0, 1, 2, 3]], np.int8),
+        lengths=np.array([3, 4], np.int32), counts=np.ones(2, np.int64),
+        rep_no=np.zeros(2, np.int32), v_no=np.zeros(2, np.int32),
+        j_no=np.zeros(2, np.int32), sequence_ids=[None, None],
+        keep=[None, None], repertoire_ids=["R0"], genes=GeneTables(),
+        longest=4,
+    )
+    spec = MatchSpec(differences=1, indels=True, ignore_genes=False)
+    with pytest.raises(RuntimeError, match="COMPAIRR_DEVICE=cpu"):
+        find_pairs(db, db, spec)
+    i1, i2, _ = find_pairs(db, db, spec, device="cpu")
+    assert sorted(zip(i1.tolist(), i2.tolist())) == [
+        (0, 0), (0, 1), (1, 0), (1, 1)
+    ]
+
+
+def _cli_without_cuda(tmp_path, flags, env_extra):
+    a, b = write_pair(tmp_path)
+    env = dict(os.environ, **env_extra)
+    env.pop("COMPAIRR_DEVICE", None)
+    return subprocess.run(
+        [sys.executable, "-m", "compairr_tpu_torch", *flags, a, b,
+         "-o", str(tmp_path / "o.tsv")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+
+
 def test_dense_cli_without_cuda_fails(tmp_path):
     """The CLI's dense engine with no CUDA and no COMPAIRR_DEVICE
     request exits non-zero (this host's torch has no CUDA device)."""
@@ -129,13 +165,20 @@ def test_dense_cli_without_cuda_fails(tmp_path):
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    a, b = write_pair(tmp_path)
-    env = dict(os.environ, COMPAIRR_ENGINE="dense")
-    env.pop("COMPAIRR_DEVICE", None)
-    proc = subprocess.run(
-        [sys.executable, "-m", "compairr_tpu_torch", "-m", "-d", "1", a, b,
-         "-o", str(tmp_path / "o.tsv")],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
-    )
+    proc = _cli_without_cuda(tmp_path, ["-m", "-d", "1"],
+                             {"COMPAIRR_ENGINE": "dense"})
+    assert proc.returncode != 0
+    assert "COMPAIRR_DEVICE=cpu" in proc.stderr
+
+
+def test_tile_cli_without_cuda_fails(tmp_path):
+    """-m -d 1 -i takes the tile route by default: with no CUDA and no
+    COMPAIRR_DEVICE request it exits non-zero with the device
+    message."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = _cli_without_cuda(tmp_path, ["-m", "-d", "1", "-i"], {})
     assert proc.returncode != 0
     assert "COMPAIRR_DEVICE=cpu" in proc.stderr
