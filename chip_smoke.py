@@ -56,7 +56,29 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      against 512-row ones at 1M and 4M rows a set (engine.BIG_TILE_ROWS),
      and the CLI's -m -d 1 -i at 1M rows with and without the
      find_pairs prefetch; each pair of alternatives must agree;
- 13. prints the card line, one JSON line listing every kernel, and as
+ 13. holds dense_indel and dense_general against their plain versions
+     on every full-width tile: the indel workload's dense worklist
+     (-d 1 -i, keys k-1..k+1; dense_indel in product and mean,
+     dense_general in min and max, since its counts pass 64), the kernel
+     workload at d=2 and tile 768 under min (= Jaccard), max and ratio
+     (float64: the largest relative difference), and 200,000-row sets
+     with bucket keys >= 2^31, with counts >= 2^16 and with counts
+     whose products pass int64 (float64 sums); integer sums torch.equal;
+ 14. drives dense_matrix -d 1 -i over the indel workload with product
+     (dense_indel) and min (dense_general): each matrix must equal, cell
+     for cell, the matrix of the tile route's pairs (phase 7's 14,951)
+     with float64 scores, and launch its kernel once;
+ 15. drives dense_matrix -d 2 at tile 768 over the kernel workload with
+     min (int64) and ratio (float64) through dense_general, against the
+     host route's pairs: min equal, ratio within rtol 1e-12;
+ 16. runs the CLI (COMPAIRR_ENGINE=dense) on phase 5's TSVs, counts 1
+     to 99: -m -d 1 -i (dense_indel), -m -d 1 -i -s max and -m -d 2 -s
+     min (dense_general), each byte-equal to the host route and
+     launching its kernel;
+ 17. times dense_indel (phase 14's product run) and dense_general (phase
+     15's min run) with CUDA events, their plain versions, their bounds,
+     and dense_matrix's wall on the same data;
+ 18. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -94,13 +116,17 @@ TILE = 768
 DIFFERENCES = 2
 KERNEL_CHECKSUM = 24_865_230
 CHECK_TILES = 384  # worklist tiles of phase 3
-KERNEL_SOURCES = ("dense_match", "tile_match")
+KERNEL_SOURCES = ("dense_match", "tile_match", "dense_general")
 DEVICE = "cuda"  # every device route below runs here
 # the tile route's own near-duplicates: set 1 rows planted with one
 # edit (0 substitution, 1 deletion, 2 insertion), each with its seed
 INDEL_FRAC, INDEL_SEED = 0.005, 14
 SELF_FRAC, SELF_SEED = 0.005, 15
 MIN_INDEL_PAIRS = 10_000  # the -d 1 -i run must find more pairs
+# phase 13's sets for dense_general's wide rows: the first SIDE_ROWS rows
+# of each kernel-workload set, set 2 with 1 % near-duplicates of set 1
+SIDE_ROWS, SIDE_SEED = 200_000, 16
+RATIO_RTOL = 1e-12  # float64 sums, added in no fixed order
 
 AA_LEN_MEAN, AA_LEN_STD = 14.5, 1.8
 LEN_LO, LEN_HI = 9, 22
@@ -340,9 +366,12 @@ def ensure_native():
     return proc.returncode == 0
 
 
-def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES):
-    """The dense engine's inputs on dev: derived rows of both sets and
-    the column-major worklist, as engine.dense_matrix builds them."""
+def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
+            wide=False):
+    """A dense kernel's inputs on dev, as engine.dense_matrix builds
+    them: both sets' derived rows (reversed rows with indels; int64 key
+    and count rows when wide, for dense_general) and the column-major
+    worklist over keys k-delta..k+delta."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
@@ -350,11 +379,13 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES):
     oa, ka, na = E.pack_keys(d1, tile, True)
     ob, kb, nb = E.pack_keys(d2, tile, True)
     work = E.order_colmajor(
-        E.worklist_from_keys(ka, d1.n, kb, d2.n, 0, tile, tile)
+        E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     )
     return {
-        "a": K.device_args_raw(d1, oa, na, lpad, ka, dev),
-        "b": K.device_args_raw(d2, ob, nb, lpad, kb, dev),
+        "a": K.device_args_raw(d1, oa, na, lpad, ka, dev, indels=indels,
+                               wide=wide),
+        "b": K.device_args_raw(d2, ob, nb, lpad, kb, dev, indels=indels,
+                               wide=wide),
         "work": work,
         "work_dev": K.upload_worklist(work, dev),
         "keys": (ka[: d1.n], kb[: d2.n]),
@@ -363,6 +394,8 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES):
         "r2p": E._round_up(d2.repertoire_count, 128),
         "tile": tile,
         "differences": differences,
+        "indels": indels,
+        "wide": wide,
     }
 
 
@@ -432,50 +465,22 @@ def touched_rows(starts, tile, npad):
 
 
 def bound(p, card_name):
-    """Least time the card could take for the dense_match call: the
-    larger of its bytes over the memory rate and its operations over
-    the int8 peak. Bytes: each row a worklist tile covers read once
-    (its residues and its key, repertoire and count words; the pad rows
-    past the last tile are never read), the worklist read once, the
-    matrix written once. Operations: what this data needs, one byte
-    compare and one add per residue of every equal-key pair (the other
-    pairs of the worklist differ in key and need no residue work)."""
-    if card_name not in PEAKS:
-        raise ValueError(f"no published peaks for {card_name!r}")
-    peak_ops, peak_bw = PEAKS[card_name]
-    n_bytes = 0
-    for side, col in ((p["a"], 0), (p["b"], 1)):
-        row_bytes = sum(
-            t[0].numel() * t.element_size() for t in side.values()
-        )
-        n_bytes += row_bytes * touched_rows(
-            p["work"][:, col], p["tile"], side["seqs"].shape[0]
-        )
-    n_bytes += p["work"].nbytes + p["r1p"] * p["r2p"] * 8
-    pairs = equal_key_pairs(*p["keys"])
-    ops = 2.0 * pairs * p["lpad"]
-    bytes_ms = n_bytes / peak_bw * 1e3
-    ops_ms = ops / peak_ops * 1e3
-    # the TPU kernel's own formulation (an int8 one-hot product over
-    # every pair of every visited tile plus the two chain products,
-    # 21 residue classes a position), for comparison
+    """dense_match's bound (dense_bound), beside the TPU kernel's own
+    formulation of the same work for comparison: an int8 one-hot
+    product over every pair of every visited tile plus the two chain
+    products, 21 residue classes a position."""
+    b = dense_bound(p, card_name)
     t = p["tile"]
     v3_ops = len(p["work"]) * (
         2.0 * t * t * 21 * p["lpad"] + 2.0 * p["r1p"] * t * t
         + 2.0 * p["r1p"] * t * p["r2p"]
     )
     return {
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": n_bytes,
-        "bytes_ms": bytes_ms,
-        "equal_key_pairs": pairs,
-        "ops": ops,
-        "ops_ms": ops_ms,
+        **b,
         "v3_formulation_ops": v3_ops,
-        "v3_formulation_ms": v3_ops / peak_ops * 1e3,
-        "peak_int8_ops": peak_ops,
-        "peak_bytes_per_s": peak_bw,
+        "v3_formulation_ms": v3_ops / PEAKS[card_name][0] * 1e3,
+        "peak_int8_ops": PEAKS[card_name][0],
+        "peak_bytes_per_s": PEAKS[card_name][1],
     }
 
 
@@ -492,6 +497,174 @@ def host_matrix(d1, d2):
     s = pair_scores(d1.counts[i1], d2.counts[i2], SCORE_PRODUCT, False)
     np.add.at(m, (d1.rep_no[i1], d2.rep_no[i2]), s)
     return m, len(i1)
+
+
+def pairs_matrix(d1, d2, pairs, score_int):
+    """The -m matrix of a pair list (find_pairs' i1, i2): float64 scores
+    summed with np.add.at, as the host route sums them."""
+    from compairr_tpu_torch.core.score import pair_scores
+
+    i1, i2 = pairs[0], pairs[1]
+    m = np.zeros((d1.repertoire_count, d2.repertoire_count))
+    np.add.at(m, (d1.rep_no[i1], d2.rep_no[i2]),
+              pair_scores(d1.counts[i1], d2.counts[i2], score_int, False))
+    return m
+
+
+def run_join(p, mode, d, float_out=False, plain=False):
+    """dense_general (wide rows) or dense_indel on p's inputs: the
+    kernel, or its plain version."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    kw = dict(differences=d, score_mode=mode, tile_m=p["tile"],
+              tile_n=p["tile"], r1p=p["r1p"], r2p=p["r2p"])
+    if p["wide"]:
+        fn = K.dense_general_plain if plain else K.dense_general
+        return fn(p["a"], p["b"], p["work_dev"], indels=p["indels"],
+                  float_out=float_out, **kw)
+    fn = K.dense_indel_plain if plain else K.dense_indel
+    return fn(p["a"], p["b"], p["work_dev"], **kw)
+
+
+def dense_bound(p, card_name):
+    """Least time the card could take for a dense kernel's call (p from
+    prepare): the larger of its bytes over the memory rate and its
+    operations over the int8 peak. Bytes: each row a worklist tile
+    covers read once (residues, reversed residues on indel runs, key,
+    repertoire and count; the pad rows past the last tile are never
+    read), the worklist read once, the matrix written once. Operations:
+    what this data needs, one compare and one add per residue of every
+    equal-key pair and, on indel runs, two (prefix and suffix) per
+    residue of every pair with keys 1 apart (the other pairs of the
+    worklist differ in key and need no residue work)."""
+    if card_name not in PEAKS:
+        raise ValueError(f"no published peaks for {card_name!r}")
+    peak_ops, peak_bw = PEAKS[card_name]
+    n_bytes = p["work"].nbytes + p["r1p"] * p["r2p"] * 8
+    for side, col in ((p["a"], 0), (p["b"], 1)):
+        row_bytes = sum(t[0].numel() * t.element_size()
+                        for t in side.values())
+        n_bytes += row_bytes * touched_rows(
+            p["work"][:, col], p["tile"], side["seqs"].shape[0]
+        )
+    ka, kb = p["keys"]
+    eq = equal_key_pairs(ka, kb)
+    pm = (equal_key_pairs(ka + 1, kb) + equal_key_pairs(ka - 1, kb)
+          if p["indels"] else 0)
+    ops = 2.0 * p["lpad"] * eq + 4.0 * p["lpad"] * pm
+    bytes_ms = n_bytes / peak_bw * 1e3
+    ops_ms = ops / peak_ops * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "bytes_ms": bytes_ms, "ops": ops,
+        "ops_ms": ops_ms, "equal_key_pairs": eq,
+        "key_distance_1_pairs": pm,
+    }
+
+
+def side_sets(d1, d2):
+    """Phase 13's smaller sets: the first SIDE_ROWS rows of each
+    kernel-workload set, set 2 with 1 % substitution and indel
+    near-duplicates of set 1 rows planted."""
+    idx = np.arange(SIDE_ROWS)
+    a = subset(d1, idx)
+    return a, with_planted(a, subset(d2, idx), 0.01, SIDE_SEED, (0, 1, 2))
+
+
+def wide_keys(db):
+    """db with every V index raised by 2^15: bucket keys >= 2^31, past
+    the int32 key rows."""
+    from dataclasses import replace
+
+    return replace(db, v_no=db.v_no + (1 << 15))
+
+
+def with_counts(db, fn):
+    """db with its duplicate counts mapped by fn (int64 in, int64 out)."""
+    from dataclasses import replace
+
+    return replace(db, counts=fn(db.counts.astype(np.int64)))
+
+
+def compare_join(p, label, cases):
+    """Each (kernel label, mode, d, float_out) of cases: the kernel
+    against its plain version on every tile of p's worklist. Returns
+    (largest absolute difference, largest relative difference of the
+    float64 sums, matched score total); integer sums must be equal."""
+    import torch
+
+    worst = rel = 0.0
+    total = 0.0
+    for name, mode, d, float_out in cases:
+        k = run_join(p, mode, d, float_out)
+        ref = run_join(p, mode, d, float_out, plain=True)
+        diff = (k - ref).abs()
+        err = float(diff.max())
+        worst = max(worst, err)
+        if float_out:
+            nz = ref != 0
+            r = float((diff[nz] / ref[nz].abs()).max()) if nz.any() else 0.0
+            rel = max(rel, r)
+            if r > RATIO_RTOL or bool((k[~nz] != 0).any()):
+                raise AssertionError(f"{label} {name}: float64 sums differ "
+                                     f"by {r} relative")
+        elif not torch.equal(k, ref):
+            raise AssertionError(f"{label} {name}: kernel differs from plain")
+        total += float(ref.sum())
+        print(f"  {label}: {name} d={d}: {len(p['work'])} tiles, kernel sum "
+              f"{float(k.sum())}, plain sum {float(ref.sum())}, max abs err "
+              f"{err}{f', max rel err {r}' if float_out else ''}")
+    if total == 0:
+        raise AssertionError(f"{label}: no match, nothing compared")
+    return worst, rel, total
+
+
+# tag, flags, the kernel the dense run must launch (phase 5's TSVs hold
+# counts 1 to 99, so min and max take dense_general)
+CLI_JOIN_RUNS = (
+    ("d1_i", ["-m", "-d", "1", "-i"], "dense_indel"),
+    ("d1_i_max", ["-m", "-d", "1", "-i", "-s", "max"], "dense_general"),
+    ("d2_min", ["-m", "-d", "2", "-s", "min"], "dense_general"),
+)
+
+
+def phase_cli_join(workdir, files):
+    """The CLI's dense runs on dense_indel and dense_general: each in
+    this process with COMPAIRR_ENGINE=dense and no COMPAIRR_DEVICE (so
+    on the card, and its launches count) against the host route run as
+    `python -m compairr_tpu_torch` (the host indel route,
+    COMPAIRR_PIGEONHOLE=all, for -i). Returns each run's launches."""
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import kernels as K
+
+    a, b = files["a"], files["b"]
+    launches = {}
+    for tag, flags, kernel in CLI_JOIN_RUNS:
+        host = module_run(flags, (a, b), os.path.join(workdir, f"{tag}.host"),
+                          {"COMPAIRR_PIGEONHOLE": "all",
+                           "COMPAIRR_DEVICE": None})
+        out = os.path.join(workdir, f"{tag}.dense")
+        with env(COMPAIRR_ENGINE="dense", COMPAIRR_DEVICE=None,
+                 COMPAIRR_PIGEONHOLE=None):
+            K.reset_launches()
+            rc = cli.main([*flags, a, b, "-o", out, "-l",
+                           os.path.join(workdir, f"{tag}.log")])
+            launches[tag] = {k: K.LAUNCHES[k] for k in
+                             ("dense_match", "dense_indel", "dense_general")}
+        with open(out, "rb") as f:
+            dense = f.read()
+        if rc != 0 or dense != host:
+            raise AssertionError(f"CLI {tag}: dense output differs from "
+                                 "the host route")
+        if host.count(b"\n") < 2:
+            raise AssertionError(f"CLI {tag}: empty output")
+        if launches[tag][kernel] < 1:
+            raise AssertionError(f"CLI {tag}: {kernel} not launched: "
+                                 f"{launches[tag]}")
+        print(f"  {tag}: dense == host ({len(host)} bytes), launches "
+              f"{launches[tag]}")
+    return launches
 
 
 def tile_inputs(d1, d2, spec, dev, tile=None):
@@ -1304,7 +1477,173 @@ def main() -> int:
         return res
 
     report["routing"] = phase("12 routing choices A/B", p12)
+
+    # the dense engine's other two kernels: the indel workload at the
+    # engine's default tile (128) and the kernel workload at tile 768
+    joins = {}
+
+    def p13():
+        s1, s2 = side_sets(d1, d2)
+        w1, w2 = wide_keys(s1), wide_keys(s2)
+        pl = [(K.SC_MIN, "min (= Jaccard)"), (K.SC_MAX, "max")]
+        def rows(a, b, indels, wide=True, tile=E.TILE_M):
+            return prepare(a, b, dev, tile, indels=indels, wide=wide)
+
+        joins["indel"] = rows(d1, d2i, True, wide=False)
+        joins["general"] = rows(d1, d2, False, tile=TILE)
+        big = [with_counts(x, lambda c: c + (1 << 16)) for x in (s1, s2)]
+        huge = [with_counts(x, lambda c: c << 32) for x in (s1, s2)]
+        cases = [
+            ("indel workload -d 1 -i", joins["indel"],
+             [("dense_indel product", K.SC_PRODUCT, 1, False),
+              ("dense_indel mean", K.SC_SUM, 1, False)]),
+            ("indel workload -d 1 -i, wide rows", rows(d1, d2i, True),
+             [(f"dense_general {n}", m, 1, False) for m, n in pl]),
+            ("kernel workload -d 2, tile 768", joins["general"],
+             [*((f"dense_general {n}", m, DIFFERENCES, False) for m, n in pl),
+              ("dense_general ratio", K.SC_RATIO, DIFFERENCES, True)]),
+            ("keys >= 2^31", rows(w1, w2, True),
+             [("dense_general product -d 1 -i", K.SC_PRODUCT, 1, False)]),
+            ("keys >= 2^31, -d 2", rows(w1, w2, False),
+             [("dense_general product", K.SC_PRODUCT, DIFFERENCES, False)]),
+            ("counts >= 2^16", rows(*big, True),
+             [("dense_general product", K.SC_PRODUCT, 1, False)]),
+            ("counts x 2^32 (float64 sums)", rows(*huge, True),
+             [("dense_general product", K.SC_PRODUCT, 1, True)]),
+        ]
+        res = {"cases": {}, "indel_max_abs_err": 0.0,
+               "general_max_abs_err": 0.0, "ratio_max_rel_err": 0.0}
+        for label, jp, cs in cases:
+            worst, rel, total = compare_join(jp, label, cs)
+            key = ("indel_max_abs_err" if not jp["wide"]
+                   else "general_max_abs_err")
+            res[key] = max(res[key], worst)
+            res["ratio_max_rel_err"] = max(res["ratio_max_rel_err"], rel)
+            res["cases"][label] = {
+                "tiles": len(jp["work"]), "tile": jp["tile"],
+                "max_abs_err": worst, "max_rel_err": rel, "total": total,
+            }
+        return res
+
+    report["join_kernels_vs_plain"] = phase(
+        "13 dense indel/general kernels vs plain", p13)
+
+    def dense_run(a, b, spec, score_int, kernel, tile=None):
+        """dense_matrix on the card with every count set to 0 just
+        before: (matrix, wall seconds, launches); the kernel must have
+        launched once and no other dense kernel."""
+        tkw = {} if tile is None else {"tile_m": tile, "tile_n": tile}
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m = E.dense_matrix(a, b, spec, score_int, False, device=DEVICE, **tkw)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        dense = {k: launches[k] for k in
+                 ("dense_match", "dense_indel", "dense_general")}
+        if dense[kernel] != 1 or sum(dense.values()) != 1:
+            raise AssertionError(f"{kernel} expected once: {dense}")
+        return m, wall, launches
+
+    def p14():
+        from compairr_tpu_torch.constants import SCORE_MIN
+
+        pairs = E.find_pairs(d1, d2i, spec_i, device=DEVICE, want_dist=False)
+        res = {"pairs": len(pairs[0])}
+        for score, score_int, kernel in (
+            ("product", SCORE_PRODUCT, "dense_indel"),
+            ("min", SCORE_MIN, "dense_general"),
+        ):
+            m, wall, launches = dense_run(d1, d2i, spec_i, score_int, kernel)
+            want = pairs_matrix(d1, d2i, pairs, score_int)
+            same = np.array_equal(m, want)
+            print(f"  -d 1 -i, {score}: {kernel}, matrix sum "
+                  f"{m.sum():.0f}, the tile route's {len(pairs[0])} pairs "
+                  f"sum {want.sum():.0f}, equal cell for cell: {same}; "
+                  f"{wall:.6f} s end to end")
+            if not same:
+                raise AssertionError(f"-d 1 -i {kernel}: matrix differs from "
+                                     "the tile route's pairs")
+            res[kernel] = {"matrix_sum": float(m.sum()), "wall_s": wall,
+                           "launches": launches[kernel]}
+        return res
+
+    report["dense_indel_full_width"] = phase(
+        "14 dense -d 1 -i full width", p14)
+
+    def p15():
+        from compairr_tpu_torch.constants import SCORE_MIN, SCORE_RATIO
+
+        pairs = E.find_pairs(d1, d2, spec_d2)  # the host route
+        res = {"pairs": len(pairs[0])}
+        for score, score_int in (("min", SCORE_MIN), ("ratio", SCORE_RATIO)):
+            m, wall, launches = dense_run(d1, d2, spec_d2, score_int,
+                                          "dense_general", tile=TILE)
+            want = pairs_matrix(d1, d2, pairs, score_int)
+            nz = want != 0
+            rel = float((np.abs(m - want)[nz] / want[nz]).max())
+            ok = (np.array_equal(m, want) if score_int == SCORE_MIN
+                  else rel <= RATIO_RTOL and not m[~nz].any())
+            print(f"  -d 2, {score}: matrix sum {m.sum()}, host "
+                  f"route's {len(pairs[0])} pairs sum {want.sum()}, max rel "
+                  f"diff {rel}, {'equal' if ok else 'DIFFERENT'}; "
+                  f"{wall:.6f} s end to end")
+            if not ok:
+                raise AssertionError(f"-d 2 {score}: dense matrix differs "
+                                     "from the host route")
+            res[score] = {
+                "matrix_sum": float(m.sum()), "max_rel_diff": rel,
+                "wall_s": wall, "launches": launches["dense_general"]}
+        return res
+
+    report["dense_general_full_width"] = phase(
+        "15 dense general full width", p15)
+
+    def p16():
+        if not cli_inputs:
+            cli_inputs.update(cli_files(workdir.name, 30_000))
+        return phase_cli_join(workdir.name, cli_inputs)
+
+    report["cli_join"] = phase("16 CLI dense indel/general", p16)
     workdir.cleanup()
+
+    def p17():
+        from compairr_tpu_torch.constants import SCORE_MIN
+
+        res = {}
+        for kernel, jp, (a, b, spec, score_int, tile, mode, d) in (
+            ("dense_indel", joins.get("indel"),
+             (d1, d2i, spec_i, SCORE_PRODUCT, None, K.SC_PRODUCT, 1)),
+            ("dense_general", joins.get("general"),
+             (d1, d2, spec_d2, SCORE_MIN, TILE, K.SC_MIN, DIFFERENCES)),
+        ):
+            if jp is None:
+                jp = (prepare(d1, d2i, dev, E.TILE_M, indels=True)
+                      if kernel == "dense_indel"
+                      else prepare(d1, d2, dev, TILE, wide=True))
+            ms = cuda_ms(lambda: run_join(jp, mode, d), reps=20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_join(jp, mode, d, plain=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            walls = [dense_run(a, b, spec, score_int, kernel, tile)[1]
+                     for _ in range(3)]
+            bd = dense_bound(jp, name)
+            res[kernel] = {"ms": ms, "plain_ms": plain_ms,
+                           "tiles": len(jp["work"]), "tile": jp["tile"],
+                           "dense_matrix_wall_s": walls, **bd}
+            print(f"  {kernel}: {ms:.4f} ms a launch (CUDA events, 20 "
+                  f"launches), {len(jp['work'])} tiles of {jp['tile']}, "
+                  f"plain {plain_ms:.1f} ms; bound {bd['bound_ms']:.6f} ms "
+                  f"by {bd['bound_by']} ({bd['bytes']} bytes -> "
+                  f"{bd['bytes_ms']:.6f} ms; {bd['equal_key_pairs']} "
+                  f"equal-key and {bd['key_distance_1_pairs']} "
+                  f"key-distance-1 pairs, {bd['ops']:.4g} ops -> "
+                  f"{bd['ops_ms']:.6f} ms); dense_matrix walls (s) {walls}")
+        return res
+
+    report["join_timing"] = phase("17 dense indel/general timing", p17)
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
@@ -1351,6 +1690,28 @@ def main() -> int:
             "plain_ms": tv[f"{key}_plain_ms"],
             "bound_ms": tv[f"{key}_bound"]["bound_ms"],
             "bound_by": tv[f"{key}_bound"]["bound_by"],
+            "library_ms": None,
+        })
+    jv, jt = report["join_kernels_vs_plain"], report["join_timing"]
+    for kname, line, launches, err in (
+        ("dense_indel", 1147,
+         report["dense_indel_full_width"]["dense_indel"]["launches"],
+         jv["indel_max_abs_err"]),
+        ("dense_general", 411,
+         report["dense_general_full_width"]["min"]["launches"],
+         jv["general_max_abs_err"]),
+    ):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "compairr_tpu_torch/csrc/dense_general.cu",
+            "replaces": f"compairr_tpu/ops/pallas_kernels.py:{line}",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": jt[kname]["ms"],
+            "plain_ms": jt[kname]["plain_ms"],
+            "bound_ms": jt[kname]["bound_ms"],
+            "bound_by": jt[kname]["bound_by"],
             "library_ms": None,
         })
     print(card)

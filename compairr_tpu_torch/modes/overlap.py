@@ -328,9 +328,10 @@ def overlap(
         _write_pairs_header(opt, pairsfile)
 
     # COMPAIRR_ENGINE=dense routes matrix runs through the dense engine
-    # (engine.dense_matrix: the dense_match CUDA kernel, int64 sums,
-    # exact in any order). Pairs files and existence mode need the
-    # matched pair list and stay on the sparse path by construction.
+    # (engine.dense_matrix: the dense_match, dense_indel or
+    # dense_general CUDA kernel, int64 sums, exact in any order). Pairs
+    # files and existence mode need the matched pair list and stay on
+    # the sparse path by construction.
     if use_dense and (
         not opt.matrix or pairsfile is not None or opt.no_matrix
     ):

@@ -6,9 +6,16 @@ same code. Both sets are sorted by a bucket key (V gene, J gene,
 length) and a worklist lists the tile pairs whose key ranges can match;
 two device routes then run hand-written CUDA kernels (ops/kernels.py):
 
-  * the dense engine (dense_matrix, csrc/dense_match.cu) reduces the
-    matched pairs' scores into the [R1, R2] matrix in int64, exact in
-    any summation order;
+  * the dense engine (dense_matrix) reduces the matched pairs' scores
+    into the [R1, R2] matrix with one of three kernels, chosen as the
+    JAX package chooses among v3, v2c and v1: dense_match
+    (csrc/dense_match.cu; no indels, keys below 2^31, integer scores
+    with counts below 2^16), dense_indel (csrc/dense_general.cu; the
+    same with -d 1 -i) and dense_general (csrc/dense_general.cu; every
+    other run: ratio, min/max/Jaccard with a count above 64, counts >=
+    2^16, keys >= 2^31, with or without the indel). Integer sums are
+    int64, exact in any order; ratio, and runs where a cell could pass
+    2^62, sum in float64;
   * the tile route of find_pairs (csrc/tile_match.cu) counts the
     matches of every worklist tile, drops the empty tiles and extracts
     the matched pairs of the rest as packed bit words. It serves every
@@ -277,9 +284,9 @@ def _block_rep_stats(
     """Per row-block maxima over repertoires of (row count, duplicate
     count sum), on the packed (sorted) row order: a tile (rb, cb)'s
     contribution to any one matrix cell is bounded by products of
-    these. The JAX engine's f32 exactness guard chunks its worklist by
-    them; the dense path here sums in int64 and needs no guard, so only
-    the host helpers of later routes read them."""
+    these (_cell_bound). The JAX engine's f32 exactness guard chunks its
+    worklist by them; here dense_general reads them to choose between
+    int64 and float64 sums."""
     m = np.zeros(nblocks_pad, dtype=np.float64)
     s = np.zeros(nblocks_pad, dtype=np.float64)
     if n == 0:
@@ -296,6 +303,39 @@ def _block_rep_stats(
     m[: cm.shape[0]] = cm.max(axis=1)
     s[: cs.shape[0]] = cs.max(axis=1)
     return m, s
+
+
+# dense_general sums in int64 while no matrix cell can reach this; the
+# headroom to 2^63 leaves the float64 bound's rounding no room to matter
+INT64_EXACT_LIMIT = float(1 << 62)
+
+
+def _cell_bound(work: np.ndarray, stats_a, stats_b, tile_m: int,
+                tile_n: int, score_int: int, ignore_counts: bool) -> float:
+    """An upper bound on any one matrix cell of a dense run over the
+    worklist, from the per-block statistics of _block_rep_stats (the
+    bounds of the JAX package's _tile_exact_bounds, summed over every
+    tile): with per-block per-repertoire maxima M (rows) and S (count
+    sum), a tile adds at most M_a M_b (-f), S_a S_b (product, MH) or
+    S_a M_b + S_b M_a (min, max, Jaccard and the kernels' mean, which
+    sums cnt_a + cnt_b) to one cell. Ratio has no integer bound (inf)."""
+    from ..constants import SCORE_MH, SCORE_PRODUCT, SCORE_RATIO
+
+    if len(work) == 0:
+        return 0.0
+    ma, sa = stats_a
+    mb, sb = stats_b
+    rb = work[:, 0] // tile_m
+    cb = work[:, 1] // tile_n
+    if ignore_counts:
+        bound = ma[rb] * mb[cb]
+    elif score_int == SCORE_RATIO:
+        return float("inf")
+    elif score_int in (SCORE_PRODUCT, SCORE_MH):
+        bound = sa[rb] * sb[cb]
+    else:
+        bound = sa[rb] * mb[cb] + sb[cb] * ma[rb]
+    return float(bound.sum())
 
 
 def _score_np(ca, cb, score_int: int, ignore_counts: bool):
@@ -361,15 +401,18 @@ def dense_matrix(
 
     Each side is sorted by its bucket key on host (pack_keys), the
     sorted rows are derived on the device (kernels.device_args_raw),
-    and the dense_match kernel sums score(count_a, count_b) over every
-    worklist pair with equal keys and at most d differing residues.
-    Sums are int64, so the matrix is exact in any order (mean sums
-    count_a + count_b and is halved here, once).
+    and one kernel (kernels._dense_kernel_kind: dense_match,
+    dense_indel or dense_general) sums score(count_a, count_b) over
+    every worklist pair with equal keys and at most d differing
+    residues, and with -d 1 -i also over the pairs whose keys are 1
+    apart and which pass the indel test (the worklist then spans keys
+    k-1..k+1). Integer sums are int64, exact in any order (mean sums
+    count_a + count_b and is halved here, once). dense_general sums in
+    float64, the reference's type, for ratio and where a cell could
+    reach 2^62 (_cell_bound); otherwise in int64.
 
-    device: "cuda" (the default), "cpu" (the kernel's plain PyTorch
-    version), or None to read COMPAIRR_DEVICE; see utils.device.
-    Configurations whose JAX kernels are not ported yet raise
-    NotImplementedError (kernels._dense_kernel_kind)."""
+    device: "cuda" (the default), "cpu" (the kernels' plain PyTorch
+    versions), or None to read COMPAIRR_DEVICE; see utils.device."""
     if spec.exclude_self:
         # the dense kernels do not implement self-exclusion (only the
         # sparse extraction carries per-row original indices)
@@ -402,27 +445,49 @@ def dense_matrix(
         int(key_a[: db1.n].max()) if db1.n else 0,
         int(key_b[: db2.n].max()) if db2.n else 0,
     )
-    K._dense_kernel_kind(
+    kind = K._dense_kernel_kind(
         indels=use_indels, score_int=score_int,
         ignore_counts=ignore_counts, cmax=cmax, key_max=kmax,
     )
+    wide = kind == "dense_general"
 
-    da = K.device_args_raw(db1, order_a, npad_a, lmax, key_a, dev)
+    da = K.device_args_raw(db1, order_a, npad_a, lmax, key_a, dev,
+                           indels=use_indels, wide=wide)
     db_dev = da if shared else K.device_args_raw(
-        db2, order_b, npad_b, lmax, key_b, dev
+        db2, order_b, npad_b, lmax, key_b, dev, indels=use_indels, wide=wide
     )
     work = order_colmajor(
-        worklist_from_keys(key_a, db1.n, key_b, db2.n, 0, tile_m, tile_n)
+        worklist_from_keys(key_a, db1.n, key_b, db2.n, int(use_indels),
+                           tile_m, tile_n)
     )
     if logger is not None and progress_prompt is not None:
         logger.progress_init(progress_prompt, max(len(work), 1))
 
-    acc = K.dense_match(
-        da, db_dev, K.upload_worklist(work, dev),
-        differences=spec.differences,
-        score_mode=K.score_mode(score_int, ignore_counts),
-        tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p,
-    )
+    kw = dict(differences=spec.differences,
+              score_mode=K.score_mode(score_int, ignore_counts),
+              tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
+    work_dev = K.upload_worklist(work, dev)
+    if kind == "dense_match":
+        acc = K.dense_match(da, db_dev, work_dev, **kw)
+    elif kind == "dense_indel":
+        acc = K.dense_indel(da, db_dev, work_dev, **kw)
+    else:
+        bound = _cell_bound(
+            work,
+            _block_rep_stats(
+                db1.rep_no[order_a], db1.counts[order_a], db1.n, tile_m,
+                npad_a // tile_m, max(db1.repertoire_count, 1),
+            ),
+            _block_rep_stats(
+                db2.rep_no[order_b], db2.counts[order_b], db2.n, tile_n,
+                npad_b // tile_n, max(db2.repertoire_count, 1),
+            ),
+            tile_m, tile_n, score_int, ignore_counts,
+        )
+        acc = K.dense_general(
+            da, db_dev, work_dev, indels=use_indels,
+            float_out=bound >= INT64_EXACT_LIMIT, **kw,
+        )
     out = acc.cpu().numpy()[: db1.repertoire_count, : db2.repertoire_count]
     out = out.astype(np.float64)
     if score_int == SCORE_MEAN and not ignore_counts:

@@ -12,10 +12,14 @@ engine and the sparse tile route run:
     original-index rows (device_rows_raw, the tile route's). Torch ops,
     not kernels. No one-hot rows are derived: the kernels read residues.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
-    the v3 kernel's eligibility without the TPU's memory gates.
+    the JAX package's v3 / v2c / v1 ladder without the TPU's memory
+    gates.
   * dense_match: the wrapper of csrc/dense_match.cu, which replaces the
     v3 dense kernel (pallas_kernels.py:970), with its launch counter
     and its plain PyTorch version (dense_match_plain).
+  * dense_indel and dense_general: the wrappers of
+    csrc/dense_general.cu, which replaces the v2c and v1 dense kernels
+    (pallas_kernels.py:1147, :411), with their plain versions.
   * count_tiles and extract_tiles: the wrappers of csrc/tile_match.cu,
     which replaces the count and extract kernels
     (pallas_kernels.py:1513, :1683), with their plain versions.
@@ -33,7 +37,6 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
 
 import numpy as np
 import torch
@@ -45,6 +48,7 @@ from ..constants import (
     SCORE_MH,
     SCORE_MIN,
     SCORE_PRODUCT,
+    SCORE_RATIO,
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,7 +57,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run reads them to prove its path)
-LAUNCHES = {"dense_match": 0, "count_tiles": 0, "extract_tiles": 0}
+LAUNCHES = {"dense_match": 0, "dense_indel": 0, "dense_general": 0,
+            "count_tiles": 0, "extract_tiles": 0}
 _LAUNCHES_LOCK = threading.Lock()  # a prefetch worker launches too
 
 
@@ -148,39 +153,57 @@ def _shrink(x: np.ndarray, sentinel: int, m: int) -> np.ndarray:
 
 
 def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
-                    sort_key: np.ndarray, device) -> dict:
+                    sort_key: np.ndarray, device, *, indels: bool = False,
+                    wide: bool = False) -> dict:
     """Upload a SeqDB's raw arrays (plus one all-pad sentinel row) and
-    derive the key-sorted layouts the dense kernel reads, on `device`:
+    derive the key-sorted layouts the dense kernels read, on `device`:
 
       seqs   int8  [npad, lpad]  residues, pad rows all pad residue
-      key32  int32 [npad]        bucket key, pads -1
+      rseqs  int8  [npad, lpad]  rows reversed within their lengths
+                                 (only with indels)
+      key32  int32 [npad]        bucket key, pads -1   (not wide)
+      cnt    int32 [npad]        duplicate count, pads 0 (not wide)
+      key64  int64 [npad]        bucket key, pads -1   (wide)
+      cnt64  int64 [npad]        duplicate count, pads 0 (wide)
       rep    int32 [npad]        repertoire, pads -1
-      cnt    int32 [npad]        duplicate count, pads 0
 
     `order` is pack_keys' permutation and `sort_key` its sorted padded
-    key vector; padding rows gather the sentinel. Counts are
-    parser-validated integers; the kernel choice admits counts below
-    2^16 (or ignores them under -f), so int32 holds them."""
+    key vector; padding rows gather the sentinel. dense_match and
+    dense_indel read the int32 rows: their kernel choice admits keys
+    below 2^31 and counts below 2^16 (or ignores them under -f).
+    dense_general reads the wide rows, which hold any key and any
+    parser-validated integer count. The lengths of the reversal come
+    from the key's low 16 bits (clamped to lpad on pads, whose rows
+    are all pad)."""
     n = db.n
     pad_val = int(db.pad_value)
     m = _canon_src(n + 1)
     order_full = np.full(npad, n, dtype=np.int64)
     order_full[:n] = order
-    cnt = np.zeros(m, dtype=np.int32)
-    cnt[:n] = np.asarray(db.counts, dtype=np.int64).astype(np.int32)
-    k32 = np.full(npad, -1, dtype=np.int32)
-    k32[:n] = sort_key[:n]
+    if not wide and n and int(sort_key[:n].max()) >= 1 << 31:
+        raise ValueError("a bucket key is >= 2^31: the key rows must be wide")
+    dtype = np.int64 if wide else np.int32
+    cnt = np.zeros(m, dtype=dtype)
+    cnt[:n] = np.asarray(db.counts, dtype=np.int64)
+    key = np.full(npad, -1, dtype=dtype)
+    key[:n] = sort_key[:n]
 
     def up(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     o = up(order_full)
-    return {
-        "seqs": _gathered_seqs(up(_packed_upload(db, m, lpad, pad_val)), o, lpad),
-        "key32": up(k32),
+    k = up(key)
+    seqs = _gathered_seqs(up(_packed_upload(db, m, lpad, pad_val)), o, lpad)
+    out = {
+        "seqs": seqs,
+        "key64" if wide else "key32": k,
         "rep": up(_shrink(db.rep_no, -1, m)).index_select(0, o).to(torch.int32),
-        "cnt": up(cnt).index_select(0, o),
+        "cnt64" if wide else "cnt": up(cnt).index_select(0, o),
     }
+    if indels:
+        out["rseqs"] = _reversed_rows(seqs, (k & 0xFFFF).clamp(0, lpad),
+                                      pad_val)
+    return out
 
 
 # the key rows are int32 while every real key of both sets is below
@@ -280,67 +303,59 @@ def upload_worklist(work: np.ndarray, device) -> torch.Tensor:
 # --------------------------------------------------------------------
 
 # the JAX package's gate pallas_kernels._V2_GE_CMAX: the largest integer
-# count its v3 min/max threshold chains cover; JAX sends larger counts to
-# its v1 kernel, so the port raises there until v1 is ported
+# count its min/max threshold chains cover
 _V2_GE_CMAX = 64
 
-_V1 = "the v1 dense kernel (compairr_tpu/ops/pallas_kernels.py:411 _make_kernel)"
-_V2C = (
-    "the v2c dense kernel (compairr_tpu/ops/pallas_kernels.py:1147 "
-    "_make_dense_v2c_kernel)"
-)
+
+def _has_chains(score_int: int, ignore_counts: bool, cmax: float) -> bool:
+    """Whether the JAX package's score chains (pallas_kernels._v2_chains)
+    decompose this score at this largest count: -f, product, MH and
+    mean always; min, max and Jaccard for integer counts up to
+    _V2_GE_CMAX; ratio never."""
+    if ignore_counts or score_int in (SCORE_MH, SCORE_PRODUCT, SCORE_MEAN):
+        return True
+    if score_int in (SCORE_JACCARD, SCORE_MIN, SCORE_MAX):
+        return cmax == int(cmax) and cmax <= _V2_GE_CMAX
+    return False
 
 
 def _dense_kernel_kind(*, indels: bool, score_int: int,
                        ignore_counts: bool, cmax: float,
                        key_max: int) -> str:
-    """The kernel a dense run takes: "dense_match" for every run the
-    JAX package sends to its v3 kernel (the eligibility of
-    pallas_kernels._dense_kernel_kind without the TPU memory gates
-    _v3_scratch_ok, _v2_scratch_ok and _oh_fits: this kernel reads
-    residues, so no one-hot budget exists). The runs JAX sends to v2c
-    or v1 raise NotImplementedError naming the kernel still to port."""
-    if indels:
-        raise NotImplementedError(
-            f"dense runs with indels need {_V2C}, not ported yet"
-        )
-    if key_max >= (1 << 31):
-        raise NotImplementedError(
-            f"dense runs with bucket keys >= 2^31 need {_V1}, not ported yet"
-        )
-    if ignore_counts:
-        return "dense_match"
-    if score_mode(score_int, False) is None:
-        raise NotImplementedError(
-            f"the dense ratio score needs {_V1}, not ported yet"
-        )
-    if score_int in (SCORE_JACCARD, SCORE_MIN, SCORE_MAX) and (
-        cmax != int(cmax) or cmax > _V2_GE_CMAX
+    """The kernel a dense run takes, by the JAX package's ladder
+    (pallas_kernels._dense_kernel_kind) without its TPU memory gates
+    _v3_scratch_ok, _v2_scratch_ok and _oh_fits (these kernels read
+    residues, so no one-hot budget exists):
+
+      dense_match    JAX's v3: no indels, keys below 2^31, a score with
+                     chains, counts below 2^16 (or -f);
+      dense_indel    JAX's v2c: the same with the indel (-d 1 -i);
+      dense_general  JAX's v1: every other run (ratio, min/max/Jaccard
+                     with a count above 64, counts >= 2^16, keys >=
+                     2^31), with or without the indel."""
+    if (
+        key_max >= 1 << 31
+        or not _has_chains(score_int, ignore_counts, cmax)
+        or not (ignore_counts or cmax < 1 << 16)
     ):
-        raise NotImplementedError(
-            f"dense min/max/Jaccard with counts above {_V2_GE_CMAX} "
-            f"need {_V1}, not ported yet"
-        )
-    if cmax >= (1 << 16):
-        raise NotImplementedError(
-            f"dense runs with counts >= 2^16 need {_V1}, not ported yet"
-        )
-    return "dense_match"
+        return "dense_general"
+    return "dense_indel" if indels else "dense_match"
 
 
 # --------------------------------------------------------------------
 # dense_match: kernel wrapper and plain version
 # --------------------------------------------------------------------
 
-# per-pair score modes of the kernel (csrc/dense_match.cu ScoreMode)
-SC_ONE, SC_PRODUCT, SC_MIN, SC_MAX, SC_SUM = 0, 1, 2, 3, 4
+# per-pair score modes of the dense kernels (ScoreMode in
+# csrc/dense_match.cu and csrc/dense_general.cu); ratio only in
+# dense_general's float64 sums
+SC_ONE, SC_PRODUCT, SC_MIN, SC_MAX, SC_SUM, SC_RATIO = 0, 1, 2, 3, 4, 5
 
 
-def score_mode(score_int: int, ignore_counts: bool) -> Optional[int]:
+def score_mode(score_int: int, ignore_counts: bool) -> int:
     """Kernel score mode for a CompAIRR score (compute_score,
     CompAIRR src/overlap.cc:144-166): mean sums cnt_a + cnt_b and the
-    caller halves the matrix; None for ratio, which has no exact
-    integer form."""
+    caller halves the matrix once."""
     if ignore_counts:
         return SC_ONE
     return {
@@ -350,10 +365,13 @@ def score_mode(score_int: int, ignore_counts: bool) -> Optional[int]:
         SCORE_MIN: SC_MIN,
         SCORE_MAX: SC_MAX,
         SCORE_MEAN: SC_SUM,
-    }.get(score_int)
+        SCORE_RATIO: SC_RATIO,
+    }[score_int]
 
 
 def _pair_score(mode: int, ca: torch.Tensor, cb: torch.Tensor):
+    """Per-pair scores of two count vectors of one dtype (int64, or
+    float64 for dense_general's float64 sums)."""
     if mode == SC_PRODUCT:
         return ca * cb
     if mode == SC_MIN:
@@ -362,59 +380,85 @@ def _pair_score(mode: int, ca: torch.Tensor, cb: torch.Tensor):
         return torch.maximum(ca, cb)
     if mode == SC_SUM:
         return ca + cb
+    if mode == SC_RATIO:
+        return ca / torch.where(cb == 0, torch.ones_like(cb), cb)
     return torch.ones_like(ca)
 
 
 def dense_match_plain(a: dict, b: dict, work: torch.Tensor, *,
                       differences: int, score_mode: int, tile_m: int,
                       tile_n: int, r1p: int, r2p: int) -> torch.Tensor:
-    """Plain PyTorch version of the dense_match kernel, tile by tile:
-    residue compare, key and pad mask, per-pair score, and an int64
-    scatter-add into the [r1p, r2p] matrix."""
-    dev = a["seqs"].device
-    lpad = a["seqs"].shape[1]
-    out = torch.zeros(r1p * r2p, dtype=torch.int64, device=dev)
-    for ra, cb in work.tolist():
-        if ra < 0 or cb < 0:
-            continue
-        sa = a["seqs"][ra : ra + tile_m]
-        sb = b["seqs"][cb : cb + tile_n]
-        matches = (sa[:, None, :] == sb[None, :, :]).sum(-1)
-        rep_a = a["rep"][ra : ra + tile_m].long()
-        rep_b = b["rep"][cb : cb + tile_n].long()
-        hit = (
-            (a["key32"][ra : ra + tile_m, None] == b["key32"][None, cb : cb + tile_n])
-            & (matches >= lpad - differences)
-            & (rep_a[:, None] >= 0)
-            & (rep_b[None, :] >= 0)
-        )
-        i, j = hit.nonzero(as_tuple=True)
-        if len(i) == 0:
-            continue
-        s = _pair_score(
-            score_mode,
-            a["cnt"][ra : ra + tile_m].long()[i],
-            b["cnt"][cb : cb + tile_n].long()[j],
-        )
-        out.index_put_((rep_a[i] * r2p + rep_b[j],), s, accumulate=True)
-    return out.view(r1p, r2p)
+    """Plain PyTorch version of the dense_match kernel: _dense_join_plain
+    on the int32 key and count rows, without the indel test."""
+    return _dense_join_plain(
+        a, b, work, key="key32", cnt="cnt", indels=False,
+        differences=differences, score_mode=score_mode,
+        out_dtype=torch.int64, tile_m=tile_m, tile_n=tile_n, r1p=r1p,
+        r2p=r2p,
+    )
 
 
-def _check_side(side: dict, name: str, dev: torch.device) -> None:
+def _check_side(side: dict, name: str, dev: torch.device,
+                wide: bool = False, indels: bool = False) -> None:
+    """A dense kernel's rows of one side (device_args_raw's): contiguous
+    int8 residues (and reversed residues with indels), and [npad] rows
+    rep int32 and key32/cnt int32, or key64/cnt64 int64 when wide, all
+    on dev."""
     seqs = side["seqs"]
     if seqs.dtype != torch.int8 or seqs.dim() != 2 or not seqs.is_contiguous():
         raise ValueError(f"{name}['seqs'] must be a contiguous int8 [npad, lpad] tensor")
-    for k in ("key32", "rep", "cnt"):
+    rows = [("seqs", seqs)]
+    if indels:
+        r = side.get("rseqs")
+        if r is None or r.dtype != torch.int8 or r.shape != seqs.shape or not r.is_contiguous():
+            raise ValueError(f"{name}['rseqs'] must be a contiguous int8 tensor shaped as seqs on indel runs")
+        rows.append(("rseqs", r))
+    key, cnt, wtype = (("key64", "cnt64", torch.int64) if wide
+                       else ("key32", "cnt", torch.int32))
+    for k, dtype in ((key, wtype), ("rep", torch.int32), (cnt, wtype)):
         x = side[k]
-        if (
-            x.dtype != torch.int32
-            or x.shape != (seqs.shape[0],)
-            or not x.is_contiguous()
-        ):
-            raise ValueError(f"{name}[{k!r}] must be a contiguous int32 [npad] tensor")
-    for k in ("seqs", "key32", "rep", "cnt"):
-        if side[k].device != dev:
-            raise ValueError(f"{name}[{k!r}] is on {side[k].device}, expected {dev}")
+        if x.dtype != dtype or x.shape != (seqs.shape[0],) or not x.is_contiguous():
+            raise ValueError(f"{name}[{k!r}] must be a contiguous {dtype} [npad] tensor")
+        rows.append((k, x))
+    for k, x in rows:
+        if x.device != dev:
+            raise ValueError(f"{name}[{k!r}] is on {x.device}, expected {dev}")
+        if dev.type == "cuda" and x.data_ptr() % 16:
+            raise ValueError(f"{name}[{k!r}] is not 16-byte aligned")
+
+
+def _check_work(work: torch.Tensor, dev: torch.device) -> None:
+    if (
+        work.dtype != torch.int32
+        or work.dim() != 2
+        or work.shape[1] != 2
+        or not work.is_contiguous()
+        or work.device != dev
+    ):
+        raise ValueError(f"work must be a contiguous int32 [T, 2] tensor on {dev}")
+
+
+def _assert_reps(a: dict, b: dict, r1p: int, r2p: int, name: str) -> None:
+    """Every repertoire index must address a cell of the output. Checked
+    on the device without a host sync: on the CPU a failure raises
+    here; on CUDA it is a device-side assert that stops the stream
+    before the kernel can write out of bounds, as PyTorch's own
+    indexing ops do."""
+    for side, rows in ((a, r1p), (b, r2p)):
+        if side["rep"].numel():
+            torch._assert_async(
+                side["rep"].max() < rows,
+                f"{name}: a repertoire index is >= {rows}, outside "
+                f"the [{r1p}, {r2p}] matrix",
+            )
+
+
+def _check_smem(name: str, smem: int, tile_n: int, lpad: int) -> None:
+    if smem > 232448:
+        raise ValueError(
+            f"{name} tile_n={tile_n}, lpad={lpad} needs {smem} bytes "
+            "of shared memory a block, over the card's 232448"
+        )
 
 
 def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
@@ -425,35 +469,20 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     most `differences` differing residues. a/b are device_args_raw
     dicts, whose rows are key-sorted with pads (key -1) last: the
     kernel binary-searches each tile's b keys, so it needs that order;
-    the plain version does not. work is int32 [T, 2] element starts on
-    the same device. CUDA tensors launch csrc/dense_match.cu; CPU
-    tensors take dense_match_plain."""
+    the plain version does not. work is int32 [T, 2] element starts of
+    tiles inside both row sets, on the same device. CUDA tensors launch
+    csrc/dense_match.cu; CPU tensors take dense_match_plain."""
     dev = a["seqs"].device
     _check_side(a, "a", dev)
     _check_side(b, "b", dev)
     lpad = a["seqs"].shape[1]
     if b["seqs"].shape[1] != lpad:
         raise ValueError("a and b residue rows differ in width")
-    if (
-        work.dtype != torch.int32
-        or work.dim() != 2
-        or work.shape[1] != 2
-        or not work.is_contiguous()
-        or work.device != dev
-    ):
-        raise ValueError(f"work must be a contiguous int32 [T, 2] tensor on {dev}")
-    # every repertoire index must address a cell of the output. Checked
-    # on the device without a host sync: on the CPU a failure raises
-    # here; on CUDA it is a device-side assert that stops the stream
-    # before the kernel can write out of bounds, as PyTorch's own
-    # indexing ops do.
-    for side, rows in ((a, r1p), (b, r2p)):
-        if side["rep"].numel():
-            torch._assert_async(
-                side["rep"].max() < rows,
-                f"dense_match: a repertoire index is >= {rows}, outside "
-                f"the [{r1p}, {r2p}] matrix",
-            )
+    _check_work(work, dev)
+    if score_mode == SC_RATIO:
+        raise ValueError("dense_match sums integers: no ratio score")
+    _assert_tiles_inside(a, b, work, tile_m, tile_n, "dense_match")
+    _assert_reps(a, b, r1p, r2p, "dense_match")
     kw = dict(differences=differences, score_mode=score_mode,
               tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
     if dev.type == "cpu":
@@ -463,12 +492,8 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     if lpad % 4:
         raise ValueError(f"dense_match needs lpad % 4 == 0, got {lpad}")
     lib = load_library("dense_match")
-    smem = lib.dense_match_smem_bytes(tile_n, lpad)
-    if smem > 232448:
-        raise ValueError(
-            f"dense_match tile_n={tile_n}, lpad={lpad} needs {smem} bytes "
-            "of shared memory a block, over the card's 232448"
-        )
+    _check_smem("dense_match", lib.dense_match_smem_bytes(tile_n, lpad),
+                tile_n, lpad)
     out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
     n_tiles = work.shape[0]
     if n_tiles == 0:
@@ -515,14 +540,16 @@ def _first_mismatch_plain(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
 
 def _match_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
                        differences: int, cls: int, exclude_self: bool,
-                       tile_m: int, tile_n: int) -> torch.Tensor:
+                       tile_m: int, tile_n: int,
+                       key: str = "key") -> torch.Tensor:
     """bool [B, TM, TN] match masks of the tiles work [B, 2]: the match
-    criterion of csrc/tile_match.cu (pallas_kernels._cached_key_match)."""
+    criterion of csrc/tile_match.cu and csrc/dense_general.cu
+    (pallas_kernels._cached_key_match), on the key row `key`."""
     dev = work.device
     ra = work[:, :1].long() + torch.arange(tile_m, device=dev)
     cb = work[:, 1:].long() + torch.arange(tile_n, device=dev)
-    ka = a["key"][ra].long()[:, :, None]
-    kb = b["key"][cb].long()[:, None, :]
+    ka = a[key][ra].long()[:, :, None]
+    kb = b[key][cb].long()[:, None, :]
     sa, sb = a["seqs"][ra], b["seqs"][cb]
     hit = torch.zeros((len(work), tile_m, tile_n), dtype=torch.bool,
                       device=dev)
@@ -638,16 +665,23 @@ def _check_tiles(a: dict, b: dict, work: torch.Tensor, cls: int,
         raise ValueError(f"tiles must be positive with tile_n % 32 == 0, got {tile_m}x{tile_n}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"tile kernels run on cuda or cpu tensors, not {dev}")
+    _assert_tiles_inside(a, b, work, tile_m, tile_n, "tile_match")
+    if dev.type == "cuda" and lpad % 4:
+        raise ValueError(f"tile kernels need lpad % 4 == 0, got {lpad}")
+    return dev
+
+
+def _assert_tiles_inside(a: dict, b: dict, work: torch.Tensor, tile_m: int,
+                         tile_n: int, name: str) -> None:
+    """On the device, with no host sync: every tile of work lies inside
+    both row sets."""
     if len(work):
         torch._assert_async(
             (work.min() >= 0)
             & (work[:, 0].max() <= a["seqs"].shape[0] - tile_m)
             & (work[:, 1].max() <= b["seqs"].shape[0] - tile_n),
-            "tile_match: a worklist tile lies outside the row sets",
+            f"{name}: a worklist tile lies outside the row sets",
         )
-    if dev.type == "cuda" and lpad % 4:
-        raise ValueError(f"tile kernels need lpad % 4 == 0, got {lpad}")
-    return dev
 
 
 def _tile_args(a: dict, b: dict, work: torch.Tensor, cls: int, tile_m: int,
@@ -764,6 +798,200 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
 
 
 # --------------------------------------------------------------------
+# dense_indel / dense_general: kernel wrappers and plain versions
+# --------------------------------------------------------------------
+
+
+def _dense_join_plain(a: dict, b: dict, work: torch.Tensor, *, key: str,
+                      cnt: str, indels: bool, differences: int,
+                      score_mode: int, out_dtype: torch.dtype, tile_m: int,
+                      tile_n: int, r1p: int, r2p: int) -> torch.Tensor:
+    """The plain version of the three dense kernels, a few tiles a
+    step: the match masks of _match_tiles_plain on the key
+    row `key` (Hamming on equal keys, and with indels the indel test on
+    keys 1 apart), the pad mask (rep >= 0 on both sides), the per-pair
+    score in out_dtype from the count row `cnt`, and a scatter-add into
+    the [r1p, r2p] matrix."""
+    dev = a["seqs"].device
+    lpad = a["seqs"].shape[1]
+    out = torch.zeros(r1p * r2p, dtype=out_dtype, device=dev)
+    cls = CLS_BOTH if indels else CLS_HAMMING
+    for _, w in _plain_batches(work, tile_m, tile_n, lpad):
+        hit = _match_tiles_plain(
+            a, b, w, differences=differences, cls=cls, exclude_self=False,
+            tile_m=tile_m, tile_n=tile_n, key=key,
+        )
+        ra = w[:, :1].long() + torch.arange(tile_m, device=dev)
+        cb = w[:, 1:].long() + torch.arange(tile_n, device=dev)
+        rep_a = a["rep"][ra].long()
+        rep_b = b["rep"][cb].long()
+        hit &= (rep_a >= 0)[:, :, None] & (rep_b >= 0)[:, None, :]
+        t, i, j = hit.nonzero(as_tuple=True)
+        s = _pair_score(
+            score_mode,
+            a[cnt][ra[t, i]].to(out_dtype),
+            b[cnt][cb[t, j]].to(out_dtype),
+        )
+        out.index_put_((rep_a[t, i] * r2p + rep_b[t, j],), s,
+                       accumulate=True)
+    return out.view(r1p, r2p)
+
+
+def dense_indel_plain(a: dict, b: dict, work: torch.Tensor, *,
+                      differences: int, score_mode: int, tile_m: int,
+                      tile_n: int, r1p: int, r2p: int) -> torch.Tensor:
+    """Plain PyTorch version of the dense_indel kernel (int64 sums over
+    the int32 key and count rows)."""
+    return _dense_join_plain(
+        a, b, work, key="key32", cnt="cnt", indels=True,
+        differences=differences, score_mode=score_mode,
+        out_dtype=torch.int64, tile_m=tile_m, tile_n=tile_n, r1p=r1p,
+        r2p=r2p,
+    )
+
+
+def dense_general_plain(a: dict, b: dict, work: torch.Tensor, *,
+                        differences: int, indels: bool, score_mode: int,
+                        float_out: bool, tile_m: int, tile_n: int, r1p: int,
+                        r2p: int) -> torch.Tensor:
+    """Plain PyTorch version of the dense_general kernel (int64 sums, or
+    float64 with float_out, over the int64 key and count rows)."""
+    return _dense_join_plain(
+        a, b, work, key="key64", cnt="cnt64", indels=indels,
+        differences=differences, score_mode=score_mode,
+        out_dtype=torch.float64 if float_out else torch.int64,
+        tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p,
+    )
+
+
+def _check_join(a: dict, b: dict, work: torch.Tensor, *, wide: bool,
+                indels: bool, tile_m: int, tile_n: int, r1p: int, r2p: int,
+                name: str) -> torch.device:
+    """The device of a dense_indel / dense_general call, after its input
+    checks: the rows' types, shapes, devices and alignment, the
+    worklist's, and (on the device, with no host sync) that every tile
+    lies inside both row sets and every repertoire inside the matrix."""
+    dev = a["seqs"].device
+    _check_side(a, "a", dev, wide=wide, indels=indels)
+    _check_side(b, "b", dev, wide=wide, indels=indels)
+    lpad = a["seqs"].shape[1]
+    if b["seqs"].shape[1] != lpad:
+        raise ValueError("a and b residue rows differ in width")
+    _check_work(work, dev)
+    if tile_m <= 0 or tile_n <= 0:
+        raise ValueError(f"tiles must be positive, got {tile_m}x{tile_n}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+    if dev.type == "cuda" and lpad % 4:
+        raise ValueError(f"{name} needs lpad % 4 == 0, got {lpad}")
+    _assert_tiles_inside(a, b, work, tile_m, tile_n, name)
+    _assert_reps(a, b, r1p, r2p, name)
+    return dev
+
+
+def _join_args(a: dict, b: dict, work: torch.Tensor, key: str, cnt: str,
+               indels: bool):
+    """The leading arguments of both C launch functions (the reversed
+    rows only on indel runs)."""
+    args = []
+    for side in (a, b):
+        args += [side["seqs"].data_ptr(),
+                 side["rseqs"].data_ptr() if indels else None,
+                 side[key].data_ptr(), side["rep"].data_ptr(),
+                 side[cnt].data_ptr()]
+    return (*args, work.data_ptr(), work.shape[0], a["seqs"].shape[0],
+            b["seqs"].shape[0])
+
+
+def _raise_join(lib, name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.dense_general_error_string(err).decode()})"
+        )
+
+
+def dense_indel(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                score_mode: int, tile_m: int, tile_n: int, r1p: int,
+                r2p: int) -> torch.Tensor:
+    """int64 [r1p, r2p] matrix of a dense run with the indel: the sum
+    of the score over every pair of every worklist tile with rep >= 0
+    on both sides that matches by Hamming (equal keys, at most
+    `differences` differing residues) or by the indel test (keys 1
+    apart, prefix + suffix >= the shorter length). a/b are
+    device_args_raw dicts with indels (int32 key and count rows),
+    key-sorted with pads (key -1) last, as the kernel's binary search
+    needs; work is int32 [T, 2] element starts of tiles inside both row
+    sets, on the same device. No ratio. CUDA tensors launch
+    csrc/dense_general.cu; CPU tensors take dense_indel_plain."""
+    dev = _check_join(a, b, work, wide=False, indels=True, tile_m=tile_m,
+                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_indel")
+    if score_mode == SC_RATIO:
+        raise ValueError("dense_indel sums integers: no ratio score")
+    kw = dict(differences=differences, score_mode=score_mode,
+              tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
+    if dev.type == "cpu":
+        return dense_indel_plain(a, b, work, **kw)
+    lpad = a["seqs"].shape[1]
+    lib = load_library("dense_general")
+    _check_smem("dense_indel", lib.dense_indel_smem_bytes(tile_n, lpad),
+                tile_n, lpad)
+    out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
+    if work.shape[0] == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.dense_indel_launch(
+            *_join_args(a, b, work, "key32", "cnt", True), tile_m, tile_n,
+            lpad, differences, score_mode, r2p, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_join(lib, "dense_indel", err)
+    _count_launch("dense_indel")
+    return out
+
+
+def dense_general(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                  indels: bool, score_mode: int, float_out: bool,
+                  tile_m: int, tile_n: int, r1p: int,
+                  r2p: int) -> torch.Tensor:
+    """[r1p, r2p] matrix of any dense run: dense_indel's sum (the indel
+    test only with indels) over wide rows (device_args_raw with wide:
+    int64 key and count rows), in int64, or in float64 with float_out.
+    The ratio score needs float_out; the caller takes int64 only where
+    no cell can pass 2^62 (engine._int64_exact). CUDA tensors launch
+    csrc/dense_general.cu; CPU tensors take dense_general_plain."""
+    dev = _check_join(a, b, work, wide=True, indels=indels, tile_m=tile_m,
+                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_general")
+    if score_mode == SC_RATIO and not float_out:
+        raise ValueError("dense_general sums ratio scores in float64 only")
+    kw = dict(differences=differences, indels=indels, score_mode=score_mode,
+              float_out=float_out, tile_m=tile_m, tile_n=tile_n, r1p=r1p,
+              r2p=r2p)
+    if dev.type == "cpu":
+        return dense_general_plain(a, b, work, **kw)
+    lpad = a["seqs"].shape[1]
+    lib = load_library("dense_general")
+    _check_smem("dense_general",
+                lib.dense_general_smem_bytes(tile_n, lpad, int(indels)),
+                tile_n, lpad)
+    out = torch.zeros((r1p, r2p),
+                      dtype=torch.float64 if float_out else torch.int64,
+                      device=dev)
+    if work.shape[0] == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.dense_general_launch(
+            *_join_args(a, b, work, "key64", "cnt64", indels), tile_m,
+            tile_n, lpad, differences, int(indels), score_mode, r2p,
+            int(float_out), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_join(lib, "dense_general", err)
+    _count_launch("dense_general")
+    return out
+
+
+# --------------------------------------------------------------------
 # build and load
 # --------------------------------------------------------------------
 
@@ -775,6 +1003,13 @@ _SIGNATURES = {
         "dense_match_launch": ([_P] * 9 + [_I] * 9 + [_P, _P], _I),
         "dense_match_smem_bytes": ([_I, _I], _I),
         "dense_match_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dense_general": {
+        "dense_indel_launch": ([_P] * 11 + [_I] * 9 + [_P, _P], _I),
+        "dense_general_launch": ([_P] * 11 + [_I] * 11 + [_P, _P], _I),
+        "dense_indel_smem_bytes": ([_I, _I], _I),
+        "dense_general_smem_bytes": ([_I, _I, _I], _I),
+        "dense_general_error_string": ([_I], ctypes.c_char_p),
     },
     "tile_match": {
         "count_tiles_launch": ([_P] * 9 + [_I] * 10 + [_P, _P], _I),

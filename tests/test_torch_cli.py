@@ -21,7 +21,11 @@ def files(tmp_path_factory):
     a, b = write_pair(d)
     # -x takes a single repertoire as its first set
     q = make_tsv(str(d / "q.tsv"), 60, 1, seed=23, **SHAPE)
-    return {"a": a, "b": b, "q": q, "dir": d}
+    # counts up to 200: min, max and Jaccard past the dense chains' 64
+    big = d / "big"
+    big.mkdir()
+    a_big, b_big = write_pair(big, max_count=200)
+    return {"a": a, "b": b, "q": q, "A": a_big, "B": b_big, "dir": d}
 
 
 def _run(pkg, args, out, env_extra, stderr=None):
@@ -43,8 +47,11 @@ def _run(pkg, args, out, env_extra, stderr=None):
         return f.read()
 
 
+INPUTS = ("a", "b", "q", "A", "B")
+
+
 def _compare(files, args, env_extra, tag):
-    args = [files[a] if a in ("a", "b", "q") else a for a in args]
+    args = [files[a] if a in INPUTS else a for a in args]
     want = _run("compairr_tpu", args, files["dir"] / f"{tag}.jax",
                 env_extra)
     got = _run("compairr_tpu_torch", args, files["dir"] / f"{tag}.torch",
@@ -70,11 +77,19 @@ def test_cli_host_routes_byte_equal(files, tag):
     _compare(files, HOST[tag], {}, tag)
 
 
+# -d 1 -i takes dense_indel, -s min/max/Jaccard on counts above 64
+# (files A and B) dense_general, the rest dense_match
 DENSE = {
     "dense_d2": ["-m", "-d", "2", "a", "b"],
     "dense_d1_f": ["-m", "-d", "1", "-f", "a", "b"],
     "dense_d0_mh": ["-m", "-d", "0", "-s", "MH", "a", "b"],
     "dense_d2_g_mean": ["-m", "-d", "2", "-g", "-s", "mean", "a", "b"],
+    "dense_d1_i": ["-m", "-d", "1", "-i", "a", "b"],
+    "dense_d1_i_max": ["-m", "-d", "1", "-i", "-s", "max", "a", "b"],
+    "dense_d2_min_big": ["-m", "-d", "2", "-s", "min", "A", "B"],
+    # CompAIRR defines the Jaccard index at d 0 only
+    "dense_d0_jaccard_big": ["-m", "-d", "0", "-s", "Jaccard", "A", "B"],
+    "dense_d1_i_max_big": ["-m", "-d", "1", "-i", "-s", "max", "A", "B"],
 }
 
 
@@ -131,10 +146,12 @@ def test_cli_dense_engine_byte_equal(files, tag):
         files, DENSE[tag],
         {"COMPAIRR_ENGINE": "dense", "COMPAIRR_DEVICE": "cpu"}, tag,
     )
-    # and equal to the port's own host route
+    # and equal to the port's own host route (the host indel route for
+    # -i, whose default route is the tile route on the card)
     host = _run(
         "compairr_tpu_torch",
-        [files[a] if a in ("a", "b") else a for a in DENSE[tag]],
-        files["dir"] / f"{tag}.host", {},
+        [files[a] if a in INPUTS else a for a in DENSE[tag]],
+        files["dir"] / f"{tag}.host",
+        {"COMPAIRR_PIGEONHOLE": "all"} if "-i" in DENSE[tag] else {},
     )
     assert out == host

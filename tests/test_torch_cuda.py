@@ -312,6 +312,118 @@ def test_find_pairs_cuda_equals_cpu(cuda, monkeypatch, spec, self_cmp,
     assert len(want[0]) > (d1.n if self_cmp else 0)
 
 
+def _counted(db, seed, high=100):
+    """db with duplicate counts drawn from 1..high-1."""
+    import numpy as np
+    from dataclasses import replace
+
+    rng = np.random.default_rng(seed)
+    return replace(db, counts=rng.integers(1, high, db.n).astype(np.int64))
+
+
+def _join_inputs(d1, d2, dev, tile, indels, wide):
+    """dense_indel / dense_general inputs as engine.dense_matrix builds
+    them (a self-comparison shares one derive)."""
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
+    oa, ka, na = E.pack_keys(d1, tile, True)
+    ob, kb, nb = E.pack_keys(d2, tile, True)
+    work = E.order_colmajor(
+        E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
+    )
+    a = K.device_args_raw(d1, oa, na, lpad, ka, dev, indels=indels,
+                          wide=wide)
+    b = a if d2 is d1 else K.device_args_raw(d2, ob, nb, lpad, kb, dev,
+                                             indels=indels, wide=wide)
+    return a, b, K.upload_worklist(work, dev)
+
+
+@pytest.mark.parametrize("tile", [128, 768])
+@pytest.mark.parametrize("self_cmp", [False, True], ids=["two", "self"])
+def test_dense_indel_kernel_equals_plain(cuda, tile, self_cmp):
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    d1, d2 = _counted(d1, 1), _counted(d2, 2)
+    if self_cmp:
+        d1 = d2 = _concat(d1, d2)
+    a, b, work = _join_inputs(d1, d2, cuda, tile, True, False)
+    for mode in (K.SC_ONE, K.SC_PRODUCT, K.SC_MIN, K.SC_MAX, K.SC_SUM):
+        kw = dict(differences=1, score_mode=mode, tile_m=tile, tile_n=tile,
+                  r1p=8, r2p=128)
+        before = K.LAUNCHES["dense_indel"]
+        got = K.dense_indel(a, b, work, **kw)
+        assert K.LAUNCHES["dense_indel"] == before + 1
+        want = K.dense_indel_plain(a, b, work, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (mode, tile, self_cmp)
+        assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("v_offset", [0, 1 << 15], ids=["keys", "keys64"])
+@pytest.mark.parametrize("indels", [False, True], ids=["d2", "d1_indel"])
+def test_dense_general_kernel_equals_plain(cuda, indels, v_offset):
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24, v_offset=v_offset)
+    d1, d2 = _counted(d1, 3, 1 << 20), _counted(d2, 4, 1 << 20)
+    a, b, work = _join_inputs(d1, d2, cuda, 256, indels, True)
+    d = 1 if indels else 2
+    for mode in (K.SC_ONE, K.SC_PRODUCT, K.SC_MIN, K.SC_MAX, K.SC_SUM,
+                 K.SC_RATIO):
+        for float_out in ((True,) if mode == K.SC_RATIO else (False, True)):
+            kw = dict(differences=d, indels=indels, score_mode=mode,
+                      float_out=float_out, tile_m=256, tile_n=256, r1p=8,
+                      r2p=128)
+            before = K.LAUNCHES["dense_general"]
+            got = K.dense_general(a, b, work, **kw)
+            assert K.LAUNCHES["dense_general"] == before + 1
+            want = K.dense_general_plain(a, b, work, **kw)
+            torch.cuda.synchronize()
+            if float_out:
+                # float64 atomics add in no fixed order
+                torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+            else:
+                assert torch.equal(got, want), (mode, indels, v_offset)
+            assert float(want.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["indel", "min_big", "ratio"])
+def test_dense_matrix_new_kernels_cuda_equals_cpu(cuda, case):
+    import numpy as np
+
+    from compairr_tpu_torch.constants import (
+        SCORE_MIN,
+        SCORE_PRODUCT,
+        SCORE_RATIO,
+    )
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
+
+    d1, d2 = _planted_pair(24)
+    d1, d2 = _counted(d1, 5), _counted(d2, 6)
+    spec = MatchSpec(differences=1, indels=case != "ratio",
+                     ignore_genes=False)
+    score = {"indel": SCORE_PRODUCT, "min_big": SCORE_MIN,
+             "ratio": SCORE_RATIO}[case]
+    kernel = "dense_indel" if case == "indel" else "dense_general"
+    K.reset_launches()
+    got = dense_matrix(d1, d2, spec, score, False, device="cuda")
+    assert K.LAUNCHES[kernel] == 1
+    want = dense_matrix(d1, d2, spec, score, False, device="cpu")
+    if case == "ratio":
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+    else:
+        np.testing.assert_array_equal(got, want)
+    assert want.sum() > 0
+
+
 def test_dense_match_rejects_cpu_worklist(cuda, sets):
     from compairr_tpu_torch.ops import kernels as K
 

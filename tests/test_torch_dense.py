@@ -2,8 +2,9 @@
 the CPU (the dense_match kernel's plain version), against the JAX
 package's dense_matrix through its Pallas v3 kernel (interpret mode)
 and through its XLA scan path. Matrices are integer (or, for mean,
-half-integer) sums, so equality is exact. Configurations whose JAX
-kernels are not ported yet must raise NotImplementedError."""
+half-integer) sums, so equality is exact. The runs JAX sends to its
+v2c and v1 kernels are held in test_torch_dense_indel.py and
+test_torch_dense_general.py."""
 
 import numpy as np
 import pytest
@@ -14,11 +15,9 @@ from compairr_tpu.constants import (
     SCORE_MEAN,
     SCORE_MIN,
     SCORE_PRODUCT,
-    SCORE_RATIO,
 )
 from compairr_tpu.ops import engine as jeng
 from compairr_tpu_torch.ops import engine as teng
-from compairr_tpu_torch.ops import kernels as K
 
 from torch_port_data import read_pair, write_pair
 
@@ -101,41 +100,6 @@ def test_dense_device_from_env(dbs, monkeypatch):
     a = teng.dense_matrix(t1, t2, tspec, SCORE_PRODUCT, False)
     b = teng.dense_matrix(t1, t2, tspec, SCORE_PRODUCT, False, device="cpu")
     np.testing.assert_array_equal(a, b)
-
-
-def _big_counts(db, value):
-    from dataclasses import replace
-
-    counts = db.counts.copy()
-    counts[0] = value
-    return replace(db, counts=counts)
-
-
-@pytest.mark.parametrize(
-    "case,kernel",
-    [
-        ("indels", "_make_dense_v2c_kernel"),
-        ("ratio", "_make_kernel"),
-        ("min_big_counts", "_make_kernel"),
-        ("counts_2_16", "_make_kernel"),
-    ],
-)
-def test_unported_configs_raise(dbs, case, kernel):
-    """Runs the JAX package sends to its v2c or v1 kernels raise,
-    naming the kernel still to port; none falls back silently."""
-    (_, _), (t1, t2) = dbs
-    spec = teng.MatchSpec(
-        differences=1, indels=case == "indels", ignore_genes=False
-    )
-    score = {"ratio": SCORE_RATIO, "min_big_counts": SCORE_MIN}.get(
-        case, SCORE_PRODUCT
-    )
-    if case == "min_big_counts":
-        t1 = _big_counts(t1, K._V2_GE_CMAX + 1)
-    elif case == "counts_2_16":
-        t1 = _big_counts(t1, 1 << 16)
-    with pytest.raises(NotImplementedError, match=kernel):
-        teng.dense_matrix(t1, t2, spec, score, False, device="cpu")
 
 
 def test_dense_exclude_self_rejected(dbs):

@@ -123,6 +123,36 @@ def test_device_route_without_cuda_raises(no_cuda):
     assert m.tolist() == [[4.0]]
 
 
+@pytest.mark.parametrize("indels,score", [(True, "product"),
+                                          (False, "ratio")],
+                         ids=["dense_indel", "dense_general"])
+def test_dense_kernels_without_cuda_raise(no_cuda, indels, score):
+    """The dense runs that take dense_indel (-d 1 -i) and dense_general
+    (ratio) raise the device message with no CUDA and no CPU request,
+    and run when the CPU is asked for."""
+    from compairr_tpu_torch.constants import SCORE_PRODUCT, SCORE_RATIO
+    from compairr_tpu_torch.core.db import GeneTables, SeqDB
+    from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
+
+    db = SeqDB(
+        nucleotides=False,
+        seqs=np.array([[0, 1, 2, 20], [0, 1, 2, 3]], np.int8),
+        lengths=np.array([3, 4], np.int32), counts=np.array([2, 3]),
+        rep_no=np.zeros(2, np.int32), v_no=np.zeros(2, np.int32),
+        j_no=np.zeros(2, np.int32), sequence_ids=[None, None],
+        keep=[None, None], repertoire_ids=["R0"], genes=GeneTables(),
+        longest=4,
+    )
+    spec = MatchSpec(differences=1, indels=indels, ignore_genes=False)
+    score_int = SCORE_PRODUCT if score == "product" else SCORE_RATIO
+    with pytest.raises(RuntimeError, match="COMPAIRR_DEVICE=cpu"):
+        dense_matrix(db, db, spec, score_int, False)
+    m = dense_matrix(db, db, spec, score_int, False, device="cpu")
+    # with the indel both rows match each other: (2 + 3)^2; ratio
+    # without it: each row matches itself only, 2/2 + 3/3
+    assert m.tolist() == ([[25.0]] if indels else [[2.0]])
+
+
 def test_tile_route_without_cuda_raises(no_cuda):
     """find_pairs' tile route (-d 1 -i) raises the device message with
     no CUDA and no CPU request, and runs when the CPU is asked for."""
