@@ -78,7 +78,19 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
  17. times dense_indel (phase 14's product run) and dense_general (phase
      15's min run) with CUDA events, their plain versions, their bounds,
      and dense_matrix's wall on the same data;
- 18. prints the card line, one JSON line listing every kernel, and as
+ 18. dense onehot: holds dense_onehot against its plain version (and
+     dense_match) on every full-width tile of the kernel workload
+     (product, -f; min and max with counts clamped to 64), the CLI
+     workload, a -g cut of 100,000 rows a set and the 20,000-row
+     nucleotide pair (lpad 48); drives dense_matrix under
+     COMPAIRR_V3=0 over the kernel workload (sum 24,865,230) and the
+     1M x 1M -g run, each equal to dense_match's matrix; times
+     dense_onehot against dense_match in turns (tile 768, tile 128,
+     -g at tile 768) with their plain version, the bound, the
+     formulation's tensor-core operations and a torch._int_mm of the
+     same depth as a rate yardstick; and runs the CLI's -m -d 2 under
+     COMPAIRR_ENGINE=dense COMPAIRR_V3=0 against the host route;
+ 19. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -116,7 +128,8 @@ TILE = 768
 DIFFERENCES = 2
 KERNEL_CHECKSUM = 24_865_230
 CHECK_TILES = 384  # worklist tiles of phase 3
-KERNEL_SOURCES = ("dense_match", "tile_match", "dense_general")
+KERNEL_SOURCES = ("dense_match", "tile_match", "dense_general",
+                  "dense_onehot")
 DEVICE = "cuda"  # every device route below runs here
 # the tile route's own near-duplicates: set 1 rows planted with one
 # edit (0 substitution, 1 deletion, 2 insertion), each with its seed
@@ -127,6 +140,10 @@ MIN_INDEL_PAIRS = 10_000  # the -d 1 -i run must find more pairs
 # of each kernel-workload set, set 2 with 1 % near-duplicates of set 1
 SIDE_ROWS, SIDE_SEED = 200_000, 16
 RATIO_RTOL = 1e-12  # float64 sums, added in no fixed order
+# phase 18: the -g cut that the plain version checks, and the largest
+# side of the torch._int_mm yardstick (a 4 GiB int32 product)
+G_ROWS = 100_000
+INT_MM_SIDE_MAX = 32768
 
 AA_LEN_MEAN, AA_LEN_STD = 14.5, 1.8
 LEN_LO, LEN_HI = 9, 22
@@ -367,17 +384,18 @@ def ensure_native():
 
 
 def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
-            wide=False):
+            wide=False, by_vjl=True):
     """A dense kernel's inputs on dev, as engine.dense_matrix builds
     them: both sets' derived rows (reversed rows with indels; int64 key
     and count rows when wide, for dense_general) and the column-major
-    worklist over keys k-delta..k+delta."""
+    worklist over keys k-delta..k+delta; by_vjl=False keys the rows by
+    length alone (-g)."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
     lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
-    oa, ka, na = E.pack_keys(d1, tile, True)
-    ob, kb, nb = E.pack_keys(d2, tile, True)
+    oa, ka, na = E.pack_keys(d1, tile, by_vjl)
+    ob, kb, nb = E.pack_keys(d2, tile, by_vjl)
     work = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     )
@@ -667,6 +685,73 @@ def phase_cli_join(workdir, files):
     return launches
 
 
+def run_onehot(p, score_mode, plain=False):
+    """dense_onehot on p's inputs (prepare's), or its plain version."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    fn = K.dense_onehot_plain if plain else K.dense_onehot
+    return fn(p["a"], p["b"], p["work_dev"], differences=p["differences"],
+              score_mode=score_mode, tile_m=p["tile"], tile_n=p["tile"],
+              r1p=p["r1p"], r2p=p["r2p"])
+
+
+def compare_onehot(p, label, modes):
+    """dense_onehot against its plain version and against dense_match on
+    every tile of p's worklist, in each (name, mode) of modes: the
+    largest absolute difference from the plain version (0 when equal)."""
+    import torch
+
+    worst, total = 0, 0
+    for mname, mode in modes:
+        k = run_onehot(p, mode)
+        ref = run_onehot(p, mode, plain=True)
+        match = run_kernel(p, mode)
+        err = int((k - ref).abs().max())
+        worst = max(worst, err)
+        total += int(ref.sum())
+        print(f"  {label}: {mname}: {len(p['work'])} tiles of {p['tile']}, "
+              f"lpad {p['lpad']}, kernel sum {int(k.sum())}, plain sum "
+              f"{int(ref.sum())}, max abs err {err}, equal to dense_match "
+              f"{torch.equal(k, match)}")
+        if err or not torch.equal(k, match):
+            raise AssertionError(f"{label} {mname}: dense_onehot differs")
+    if total == 0:
+        raise AssertionError(f"{label}: no match, nothing compared")
+    return worst
+
+
+def onehot_ops(p):
+    """The int8 tensor-core operations of dense_onehot's formulation on
+    p: 2 tile_m tile_n K for every worklist tile, whatever its keys."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    return 2.0 * len(p["work"]) * p["tile"] ** 2 * K.onehot_width(p["lpad"])
+
+
+def int_mm_yardstick(macs, lpad, dev):
+    """A rate yardstick for the product stage, which the port never
+    calls: torch._int_mm on int8 one-hot rows of depth K =
+    onehot_width(lpad), [S, K] x [K, S] with S chosen so that the
+    product has `macs` multiply-adds, S capped at INT_MM_SIDE_MAX (the
+    time is then scaled by macs over the product's multiply-adds)."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    kdim = K.onehot_width(lpad)
+    side = int(min(INT_MM_SIDE_MAX, (macs / kdim) ** 0.5)) // 64 * 64
+    gen = torch.Generator(device=dev).manual_seed(SEEDS[0])
+    a, b = (K.onehot_rows(torch.randint(0, K.ONEHOT_CLASSES, (side, lpad),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int8))
+            for _ in range(2))
+    ms = cuda_ms(lambda: torch._int_mm(a, b.t()), reps=5)
+    scale = macs / (float(side) * side * kdim)
+    return {"shape": [side, kdim, side], "ms": ms, "scale": scale,
+            "ms_scaled": ms * scale,
+            "tops": 2.0 * side * side * kdim / (ms * 1e-3) / 1e12}
+
+
 def tile_inputs(d1, d2, spec, dev, tile=None):
     """The tile route's inputs as engine.find_pairs builds them: both
     sets' rows on dev (one derive for a self-comparison) and the
@@ -865,11 +950,9 @@ def subset(db, idx):
     )
 
 
-def cli_files(workdir, n):
-    """The CLI phases' inputs: two TSVs of n rows (set 2 holding 5 %
-    near-duplicates and 2 % exact copies of set 1 rows) and, for -x, a
-    one-repertoire query file (set 1's rows of its first
-    repertoire)."""
+def cli_sets(n):
+    """The CLI workload's two sets of n rows, set 2 holding 5 %
+    near-duplicates and 2 % exact copies of set 1 rows."""
     d1 = synth_arrays(n, 12, 8, 4, 21)
     d2 = synth_arrays(n, 16, 8, 4, 22)
     plant_near_dups(d1, d2, 0.05, 23)
@@ -884,6 +967,14 @@ def cli_files(workdir, n):
     d2.seqs[dst, :width] = d1.seqs[src, :width]
     for f in ("lengths", "v_no", "j_no"):
         getattr(d2, f)[dst] = getattr(d1, f)[src]
+    return d1, d2
+
+
+def cli_files(workdir, n):
+    """The CLI phases' inputs: cli_sets' two sets as TSVs and, for -x,
+    a one-repertoire query file (set 1's rows of its first
+    repertoire)."""
+    d1, d2 = cli_sets(n)
     paths = {k: os.path.join(workdir, f"{k}.tsv") for k in "abq"}
     write_tsv(d1, paths["a"])
     write_tsv(d2, paths["b"])
@@ -1605,7 +1696,6 @@ def main() -> int:
         return phase_cli_join(workdir.name, cli_inputs)
 
     report["cli_join"] = phase("16 CLI dense indel/general", p16)
-    workdir.cleanup()
 
     def p17():
         from compairr_tpu_torch.constants import SCORE_MIN
@@ -1644,6 +1734,141 @@ def main() -> int:
         return res
 
     report["join_timing"] = phase("17 dense indel/general timing", p17)
+
+    def p18():
+        from compairr_tpu_torch import cli
+
+        res = {}
+        # (a) the kernel against its plain version on every tile
+        both = [("product", K.SC_PRODUCT), ("-f", K.SC_ONE)]
+        c64 = [with_counts(x, lambda c: np.minimum(c, 64)) for x in (d1, d2)]
+        g_cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2)]
+        worst = 0
+        for label, mk, modes in (
+            ("kernel workload", lambda: p, both),
+            ("kernel workload, counts <= 64", lambda: prepare(*c64, dev),
+             [("min", K.SC_MIN), ("max", K.SC_MAX)]),
+            ("CLI workload", lambda: prepare(*cli_sets(30_000), dev), both),
+            (f"-g, {G_ROWS} rows a set",
+             lambda: prepare(*g_cut, dev, by_vjl=False), both),
+            ("nucleotides, lpad 48", lambda: prepare(*nt_pair(20_000, 16), dev),
+             both),
+        ):
+            worst = max(worst, compare_onehot(mk(), label, modes))
+        res["max_abs_err"] = worst
+
+        # (b) the matrix through dense_onehot under COMPAIRR_V3=0
+        sums = {}
+        for tag, genes in (("kernel workload", False), ("-g", True)):
+            spec = E.MatchSpec(differences=DIFFERENCES, indels=False,
+                               ignore_genes=genes)
+            with env(COMPAIRR_V3="0"):
+                torch.cuda.synchronize()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                m = E.dense_matrix(d1, d2, spec, SCORE_PRODUCT, False,
+                                   tile_m=TILE, tile_n=TILE, device=DEVICE)
+                wall = time.perf_counter() - t0
+                launches = dict(K.LAUNCHES)
+            with env(COMPAIRR_V3=None):
+                ref = E.dense_matrix(d1, d2, spec, SCORE_PRODUCT, False,
+                                     tile_m=TILE, tile_n=TILE, device=DEVICE)
+            same = np.array_equal(m, ref)
+            print(f"  dense_matrix {tag}, COMPAIRR_V3=0: sum {m.sum():.0f}, "
+                  f"launches {launches}, {wall:.6f} s end to end; equal to "
+                  f"dense_match's matrix (sum {ref.sum():.0f}): {same}")
+            if not same:
+                raise AssertionError(f"{tag}: dense_onehot's matrix differs")
+            if launches["dense_onehot"] < 1 or launches["dense_match"]:
+                raise AssertionError(f"{tag}: launches {launches}")
+            sums[tag] = {"matrix_sum": float(m.sum()), "wall_s": wall,
+                         "launches": launches["dense_onehot"]}
+        if sums["kernel workload"]["matrix_sum"] != KERNEL_CHECKSUM:
+            raise AssertionError("dense_onehot's matrix sum is not "
+                                 f"{KERNEL_CHECKSUM}")
+        res["matrix"] = sums
+
+        # (c) dense_onehot against dense_match, in turns, on one card
+        res["timing"] = {}
+        for tag, mk, plain in (
+            ("kernel workload, tile 768", lambda: p, True),
+            ("kernel workload, tile 128", lambda: prepare(d1, d2, dev, 128),
+             True),
+            ("-g, tile 768", lambda: prepare(d1, d2, dev, by_vjl=False),
+             False),
+            (f"-g, {G_ROWS} rows a set, tile 768",
+             lambda: prepare(*g_cut, dev, by_vjl=False), True),
+        ):
+            q = mk()
+            fns = {"dense_onehot": lambda: run_onehot(q, K.SC_PRODUCT),
+                   "dense_match": lambda: run_kernel(q, K.SC_PRODUCT)}
+            walls = {k: [] for k in fns}
+            for kname in ("dense_onehot", "dense_match", "dense_match",
+                          "dense_onehot"):
+                walls[kname].append(cuda_ms(fns[kname], reps=10))
+            ms = {k: float(np.mean(v)) for k, v in walls.items()}
+            plain_ms = None
+            if plain:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_onehot(q, K.SC_PRODUCT, plain=True)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            bd = dense_bound(q, name)
+            ops = onehot_ops(q)
+            yard = int_mm_yardstick(ops / 2, q["lpad"], dev)
+            res["timing"][tag] = {
+                "tiles": len(q["work"]), "tile": q["tile"], "ms": ms,
+                "ms_halves": walls, "plain_ms": plain_ms, **bd,
+                "formulation_ops": ops,
+                "formulation_ms": ops / PEAKS[name][0] * 1e3,
+                "int_mm": yard,
+            }
+            print(f"  {tag}: {len(q['work'])} worklist tiles; dense_onehot "
+                  f"{ms['dense_onehot']:.4f} ms, dense_match "
+                  f"{ms['dense_match']:.4f} ms a launch (CUDA events, 2 x 10 "
+                  f"launches each, in turns: {walls}), 1 launch a "
+                  f"dense_matrix call; plain "
+                  f"{'not timed' if plain_ms is None else f'{plain_ms:.1f} ms'}"
+                  f"; bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+                  f"({bd['bytes']} bytes -> {bd['bytes_ms']:.6f} ms; "
+                  f"{bd['equal_key_pairs']} equal-key pairs, {bd['ops']:.4g} "
+                  f"ops -> {bd['ops_ms']:.6f} ms); formulation {ops:.4g} int8 "
+                  f"tensor-core ops -> {ops / PEAKS[name][0] * 1e3:.4f} ms at "
+                  f"peak; yardstick (not called by the port) torch._int_mm "
+                  f"{yard['shape']} {yard['ms']:.4f} ms ({yard['tops']:.1f} "
+                  f"TOP/s), x{yard['scale']:.4g} -> {yard['ms_scaled']:.4f} ms")
+            del q
+
+        # (d) the CLI under COMPAIRR_ENGINE=dense COMPAIRR_V3=0
+        if not cli_inputs:
+            cli_inputs.update(cli_files(workdir.name, 30_000))
+        a, b = cli_inputs["a"], cli_inputs["b"]
+        flags = ["-m", "-d", "2"]
+        host = module_run(flags, (a, b), os.path.join(workdir.name,
+                                                      "v3_0.host"), {})
+        out = os.path.join(workdir.name, "v3_0.dense")
+        with env(COMPAIRR_ENGINE="dense", COMPAIRR_V3="0",
+                 COMPAIRR_DEVICE=None):
+            K.reset_launches()
+            rc = cli.main([*flags, a, b, "-o", out, "-l",
+                           os.path.join(workdir.name, "v3_0.log")])
+            launches = {k: K.LAUNCHES[k] for k in ("dense_match",
+                                                   "dense_onehot")}
+        with open(out, "rb") as f:
+            dense = f.read()
+        print(f"  CLI -m -d 2, COMPAIRR_ENGINE=dense COMPAIRR_V3=0: "
+              f"{'byte-equal to' if dense == host else 'DIFFERS from'} the "
+              f"host route ({len(host)} bytes), launches {launches}")
+        if rc != 0 or dense != host or host.count(b"\n") < 2:
+            raise AssertionError("CLI under COMPAIRR_V3=0 differs")
+        if launches["dense_onehot"] < 1 or launches["dense_match"]:
+            raise AssertionError(f"CLI under COMPAIRR_V3=0: {launches}")
+        res["cli"] = launches
+        return res
+
+    report["onehot"] = phase("18 dense onehot", p18)
+    workdir.cleanup()
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
@@ -1714,6 +1939,21 @@ def main() -> int:
             "bound_by": jt[kname]["bound_by"],
             "library_ms": None,
         })
+    oh = report["onehot"]
+    oh_t = oh["timing"]["kernel workload, tile 768"]
+    kernels.append({
+        "name": "dense_onehot",
+        "route": "cuda",
+        "source": "compairr_tpu_torch/csrc/dense_onehot.cu",
+        "replaces": "compairr_tpu/ops/pallas_kernels.py:793",
+        "launches": oh["matrix"]["kernel workload"]["launches"],
+        "max_abs_err": oh["max_abs_err"],
+        "ms": oh_t["ms"]["dense_onehot"],
+        "plain_ms": oh_t["plain_ms"],
+        "bound_ms": oh_t["bound_ms"],
+        "bound_by": oh_t["bound_by"],
+        "library_ms": None,
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

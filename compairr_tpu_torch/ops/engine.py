@@ -7,15 +7,17 @@ length) and a worklist lists the tile pairs whose key ranges can match;
 two device routes then run hand-written CUDA kernels (ops/kernels.py):
 
   * the dense engine (dense_matrix) reduces the matched pairs' scores
-    into the [R1, R2] matrix with one of three kernels, chosen as the
-    JAX package chooses among v3, v2c and v1: dense_match
+    into the [R1, R2] matrix with one of four kernels, chosen as the
+    JAX package chooses among v3, v2, v2c and v1: dense_match
     (csrc/dense_match.cu; no indels, keys below 2^31, integer scores
-    with counts below 2^16), dense_indel (csrc/dense_general.cu; the
-    same with -d 1 -i) and dense_general (csrc/dense_general.cu; every
-    other run: ratio, min/max/Jaccard with a count above 64, counts >=
-    2^16, keys >= 2^31, with or without the indel). Integer sums are
-    int64, exact in any order; ratio, and runs where a cell could pass
-    2^62, sum in float64;
+    with counts below 2^16), dense_onehot (csrc/dense_onehot.cu; the
+    same runs under COMPAIRR_V3=0, as an int8 one-hot product on the
+    tensor cores), dense_indel (csrc/dense_general.cu; the same with
+    -d 1 -i) and dense_general (csrc/dense_general.cu; every other run:
+    ratio, min/max/Jaccard with a count above 64, counts >= 2^16, keys
+    >= 2^31, with or without the indel). Integer sums are int64, exact
+    in any order; ratio, and runs where a cell could pass 2^62, sum in
+    float64;
   * the tile route of find_pairs (csrc/tile_match.cu) counts the
     matches of every worklist tile, drops the empty tiles and extracts
     the matched pairs of the rest as packed bit words. It serves every
@@ -402,11 +404,11 @@ def dense_matrix(
     Each side is sorted by its bucket key on host (pack_keys), the
     sorted rows are derived on the device (kernels.device_args_raw),
     and one kernel (kernels._dense_kernel_kind: dense_match,
-    dense_indel or dense_general) sums score(count_a, count_b) over
-    every worklist pair with equal keys and at most d differing
-    residues, and with -d 1 -i also over the pairs whose keys are 1
-    apart and which pass the indel test (the worklist then spans keys
-    k-1..k+1). Integer sums are int64, exact in any order (mean sums
+    dense_onehot, dense_indel or dense_general) sums score(count_a,
+    count_b) over every worklist pair with equal keys and at most d
+    differing residues, and with -d 1 -i also over the pairs whose keys
+    are 1 apart and which pass the indel test (the worklist then spans
+    keys k-1..k+1). Integer sums are int64, exact in any order (mean sums
     count_a + count_b and is halved here, once). dense_general sums in
     float64, the reference's type, for ratio and where a cell could
     reach 2^62 (_cell_bound); otherwise in int64.
@@ -469,6 +471,8 @@ def dense_matrix(
     work_dev = K.upload_worklist(work, dev)
     if kind == "dense_match":
         acc = K.dense_match(da, db_dev, work_dev, **kw)
+    elif kind == "dense_onehot":
+        acc = K.dense_onehot(da, db_dev, work_dev, **kw)
     elif kind == "dense_indel":
         acc = K.dense_indel(da, db_dev, work_dev, **kw)
     else:

@@ -12,11 +12,14 @@ engine and the sparse tile route run:
     original-index rows (device_rows_raw, the tile route's). Torch ops,
     not kernels. No one-hot rows are derived: the kernels read residues.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
-    the JAX package's v3 / v2c / v1 ladder without the TPU's memory
-    gates.
+    the JAX package's v3 / v2 / v2c / v1 ladder without the TPU's
+    memory gates.
   * dense_match: the wrapper of csrc/dense_match.cu, which replaces the
     v3 dense kernel (pallas_kernels.py:970), with its launch counter
     and its plain PyTorch version (dense_match_plain).
+  * dense_onehot: the wrapper of csrc/dense_onehot.cu, which replaces
+    the v2 dense kernel (pallas_kernels.py:793) with its design, an
+    int8 one-hot product on the tensor cores, and its plain version.
   * dense_indel and dense_general: the wrappers of
     csrc/dense_general.cu, which replaces the v2c and v1 dense kernels
     (pallas_kernels.py:1147, :411), with their plain versions.
@@ -57,8 +60,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run reads them to prove its path)
-LAUNCHES = {"dense_match": 0, "dense_indel": 0, "dense_general": 0,
-            "count_tiles": 0, "extract_tiles": 0}
+LAUNCHES = {"dense_match": 0, "dense_onehot": 0, "dense_indel": 0,
+            "dense_general": 0, "count_tiles": 0, "extract_tiles": 0}
 _LAUNCHES_LOCK = threading.Lock()  # a prefetch worker launches too
 
 
@@ -324,22 +327,37 @@ def _dense_kernel_kind(*, indels: bool, score_int: int,
                        key_max: int) -> str:
     """The kernel a dense run takes, by the JAX package's ladder
     (pallas_kernels._dense_kernel_kind) without its TPU memory gates
-    _v3_scratch_ok, _v2_scratch_ok and _oh_fits (these kernels read
-    residues, so no one-hot budget exists):
+    _v3_scratch_ok, _v2_scratch_ok and _oh_fits (these kernels build
+    no one-hot rows in device memory, so no one-hot budget exists):
 
       dense_match    JAX's v3: no indels, keys below 2^31, a score with
                      chains, counts below 2^16 (or -f);
+      dense_onehot   JAX's v2: the same runs while COMPAIRR_V3 is "0",
+                     the JAX package's own switch, read here at
+                     dispatch and tested as it tests it
+                     (pallas_kernels.py:1444);
       dense_indel    JAX's v2c: the same with the indel (-d 1 -i);
       dense_general  JAX's v1: every other run (ratio, min/max/Jaccard
                      with a count above 64, counts >= 2^16, keys >=
-                     2^31), with or without the indel."""
+                     2^31), with or without the indel.
+
+    JAX also takes v2 where v2's chain scratch fits VMEM and v3's DMA
+    ring does not; with no memory gate those runs take dense_match
+    here. A one-hot budget overflow, which JAX sends to v2c, takes
+    dense_match, or dense_onehot under COMPAIRR_V3=0, whose one-hots
+    live in shared memory. Indel runs and dense_general's runs keep
+    their kernels whatever COMPAIRR_V3 says, as v2 needs no indels."""
     if (
         key_max >= 1 << 31
         or not _has_chains(score_int, ignore_counts, cmax)
         or not (ignore_counts or cmax < 1 << 16)
     ):
         return "dense_general"
-    return "dense_indel" if indels else "dense_match"
+    if indels:
+        return "dense_indel"
+    if os.environ.get("COMPAIRR_V3", "1") == "0":
+        return "dense_onehot"
+    return "dense_match"
 
 
 # --------------------------------------------------------------------
@@ -515,6 +533,142 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
             f"({lib.dense_match_error_string(err).decode()})"
         )
     _count_launch("dense_match")
+    return out
+
+
+# --------------------------------------------------------------------
+# dense_onehot: kernel wrapper and plain version
+# --------------------------------------------------------------------
+
+# residue classes of the one-hot rows: aa 0..19 / nt 0..3 and the pad
+# code (20 / 4), as pallas_kernels.NCLASS
+ONEHOT_CLASSES = 21
+_ONEHOT_TILE = 64  # csrc/dense_onehot.cu's row slice: tiles are multiples
+
+
+def onehot_width(lpad: int) -> int:
+    """K, the lanes of a one-hot row: ONEHOT_CLASSES * lpad rounded up to
+    a multiple of 32 (the depth of one int8 tensor-core step)."""
+    return -(-ONEHOT_CLASSES * lpad // 32) * 32
+
+
+def onehot_rows(seqs: torch.Tensor) -> torch.Tensor:
+    """[rows, lpad] int8 residues -> [rows, onehot_width(lpad)] int8
+    one-hot rows: feature (class c, position p) at lane c * lpad + p,
+    zero lanes past ONEHOT_CLASSES * lpad
+    (pallas_kernels._onehot_rows_chunk's layout)."""
+    rows, lpad = seqs.shape
+    cls = torch.arange(ONEHOT_CLASSES, dtype=seqs.dtype, device=seqs.device)
+    oh = (seqs[:, None, :] == cls[None, :, None]).to(torch.int8)
+    oh = oh.reshape(rows, ONEHOT_CLASSES * lpad)
+    return torch.nn.functional.pad(
+        oh, (0, onehot_width(lpad) - ONEHOT_CLASSES * lpad)
+    )
+
+
+def dense_onehot_plain(a: dict, b: dict, work: torch.Tensor, *,
+                       differences: int, score_mode: int, tile_m: int,
+                       tile_n: int, r1p: int, r2p: int) -> torch.Tensor:
+    """Plain PyTorch version of the dense_onehot kernel: its one-hot
+    formulation step by step, a few tiles a step. The one-hot rows of
+    the tiles' a and b rows; their product, the position matches of
+    every pair; the mask (equal int32 keys, rep >= 0 on both sides,
+    lpad - matches <= differences); the pair scores scattered into
+    int64 cells. The products run in int64 on the CPU. On the card,
+    where torch has no int64 matmul, they run in float32 with TF32 off
+    (allow_tf32 False, full float32 precision, set here for the call),
+    which is exact: every entry is at most lpad < 2^24."""
+    dev = a["seqs"].device
+    lpad = a["seqs"].shape[1]
+    kdim = onehot_width(lpad)
+    prod = torch.int64 if dev.type == "cpu" else torch.float32
+    out = torch.zeros(r1p * r2p, dtype=torch.int64, device=dev)
+    step = max(1, _PLAIN_ELEMS // (tile_m * tile_n + (tile_m + tile_n) * kdim))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(0, len(work), step):
+            w = work[s : s + step]
+            ra = w[:, :1].long() + torch.arange(tile_m, device=dev)
+            cb = w[:, 1:].long() + torch.arange(tile_n, device=dev)
+            oa = onehot_rows(a["seqs"][ra].reshape(-1, lpad))
+            ob = onehot_rows(b["seqs"][cb].reshape(-1, lpad))
+            matches = torch.bmm(
+                oa.view(len(w), tile_m, kdim).to(prod),
+                ob.view(len(w), tile_n, kdim).to(prod).transpose(1, 2),
+            )
+            rep_a, rep_b = a["rep"][ra], b["rep"][cb]
+            hit = (
+                (a["key32"][ra][:, :, None] == b["key32"][cb][:, None, :])
+                & (rep_a >= 0)[:, :, None]
+                & (rep_b >= 0)[:, None, :]
+                & (lpad - matches <= differences)
+            )
+            t, i, j = hit.nonzero(as_tuple=True)
+            score = _pair_score(score_mode, a["cnt"][ra[t, i]].long(),
+                                b["cnt"][cb[t, j]].long())
+            out.index_put_(
+                (rep_a[t, i].long() * r2p + rep_b[t, j].long(),), score,
+                accumulate=True,
+            )
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out.view(r1p, r2p)
+
+
+def dense_onehot(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                 score_mode: int, tile_m: int, tile_n: int, r1p: int,
+                 r2p: int) -> torch.Tensor:
+    """dense_match's int64 [r1p, r2p] matrix, computed as v2 computes
+    it: the position matches of each tile are an int8 one-hot product
+    on the tensor cores. a/b are device_args_raw dicts (int32 key and
+    count rows) in any row order; work is int32 [T, 2] element starts
+    of tiles inside both row sets, on the same device; tile_m and
+    tile_n are multiples of 64 and every residue code is below
+    ONEHOT_CLASSES. No ratio. CUDA tensors launch csrc/dense_onehot.cu;
+    CPU tensors take dense_onehot_plain."""
+    if tile_m % _ONEHOT_TILE or tile_n % _ONEHOT_TILE:
+        raise ValueError(f"dense_onehot needs tiles that are multiples of "
+                         f"{_ONEHOT_TILE}, got {tile_m}x{tile_n}")
+    dev = _check_join(a, b, work, wide=False, indels=False, tile_m=tile_m,
+                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_onehot")
+    if score_mode == SC_RATIO:
+        raise ValueError("dense_onehot sums integers: no ratio score")
+    for side in (a,) if b is a else (a, b):
+        if side["seqs"].numel():
+            torch._assert_async(
+                side["seqs"].max() < ONEHOT_CLASSES,
+                f"dense_onehot: a residue code is >= {ONEHOT_CLASSES}, "
+                "outside the one-hot classes",
+            )
+    kw = dict(differences=differences, score_mode=score_mode,
+              tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
+    if dev.type == "cpu":
+        return dense_onehot_plain(a, b, work, **kw)
+    lpad = a["seqs"].shape[1]
+    lib = load_library("dense_onehot")
+    _check_smem("dense_onehot", lib.dense_onehot_smem_bytes(lpad), tile_n,
+                lpad)
+    out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
+    if work.shape[0] == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.dense_onehot_launch(
+            a["seqs"].data_ptr(), a["key32"].data_ptr(),
+            a["rep"].data_ptr(), a["cnt"].data_ptr(),
+            b["seqs"].data_ptr(), b["key32"].data_ptr(),
+            b["rep"].data_ptr(), b["cnt"].data_ptr(),
+            work.data_ptr(), work.shape[0],
+            a["seqs"].shape[0], b["seqs"].shape[0], tile_m, tile_n, lpad,
+            differences, score_mode, r2p, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"dense_onehot launch failed: CUDA error {err} "
+            f"({lib.dense_onehot_error_string(err).decode()})"
+        )
+    _count_launch("dense_onehot")
     return out
 
 
@@ -867,10 +1021,11 @@ def dense_general_plain(a: dict, b: dict, work: torch.Tensor, *,
 def _check_join(a: dict, b: dict, work: torch.Tensor, *, wide: bool,
                 indels: bool, tile_m: int, tile_n: int, r1p: int, r2p: int,
                 name: str) -> torch.device:
-    """The device of a dense_indel / dense_general call, after its input
-    checks: the rows' types, shapes, devices and alignment, the
-    worklist's, and (on the device, with no host sync) that every tile
-    lies inside both row sets and every repertoire inside the matrix."""
+    """The device of a dense_indel / dense_general / dense_onehot call,
+    after its input checks: the rows' types, shapes, devices and
+    alignment, the worklist's, and (on the device, with no host sync)
+    that every tile lies inside both row sets and every repertoire
+    inside the matrix."""
     dev = a["seqs"].device
     _check_side(a, "a", dev, wide=wide, indels=indels)
     _check_side(b, "b", dev, wide=wide, indels=indels)
@@ -1003,6 +1158,11 @@ _SIGNATURES = {
         "dense_match_launch": ([_P] * 9 + [_I] * 9 + [_P, _P], _I),
         "dense_match_smem_bytes": ([_I, _I], _I),
         "dense_match_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dense_onehot": {
+        "dense_onehot_launch": ([_P] * 9 + [_I] * 9 + [_P, _P], _I),
+        "dense_onehot_smem_bytes": ([_I], _I),
+        "dense_onehot_error_string": ([_I], ctypes.c_char_p),
     },
     "dense_general": {
         "dense_indel_launch": ([_P] * 11 + [_I] * 9 + [_P, _P], _I),

@@ -78,7 +78,8 @@ def test_cli_host_routes_byte_equal(files, tag):
 
 
 # -d 1 -i takes dense_indel, -s min/max/Jaccard on counts above 64
-# (files A and B) dense_general, the rest dense_match
+# (files A and B) dense_general, -d 2 under COMPAIRR_V3=0 (DENSE_ENV)
+# dense_onehot, the rest dense_match
 DENSE = {
     "dense_d2": ["-m", "-d", "2", "a", "b"],
     "dense_d1_f": ["-m", "-d", "1", "-f", "a", "b"],
@@ -90,7 +91,10 @@ DENSE = {
     # CompAIRR defines the Jaccard index at d 0 only
     "dense_d0_jaccard_big": ["-m", "-d", "0", "-s", "Jaccard", "A", "B"],
     "dense_d1_i_max_big": ["-m", "-d", "1", "-i", "-s", "max", "A", "B"],
+    "dense_d2_v3_0": ["-m", "-d", "2", "a", "b"],
 }
+# the environment a DENSE run adds, for both packages
+DENSE_ENV = {"dense_d2_v3_0": {"COMPAIRR_V3": "0"}}
 
 
 # the sparse tile route of find_pairs, on the CPU (COMPAIRR_DEVICE=cpu):
@@ -144,7 +148,8 @@ def test_cli_tile_route_byte_equal(files, tag):
 def test_cli_dense_engine_byte_equal(files, tag):
     out = _compare(
         files, DENSE[tag],
-        {"COMPAIRR_ENGINE": "dense", "COMPAIRR_DEVICE": "cpu"}, tag,
+        {"COMPAIRR_ENGINE": "dense", "COMPAIRR_DEVICE": "cpu",
+         **DENSE_ENV.get(tag, {})}, tag,
     )
     # and equal to the port's own host route (the host indel route for
     # -i, whose default route is the tile route on the card)

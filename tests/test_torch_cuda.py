@@ -424,6 +424,100 @@ def test_dense_matrix_new_kernels_cuda_equals_cpu(cuda, case):
     assert want.sum() > 0
 
 
+def _onehot_inputs(d1, d2, dev, tm, tn):
+    """dense_onehot inputs with tiles tm x tn (each set packed at its
+    own tile), and two worklists: the one from the keys and every tile
+    pair of both padded row sets (pads and all-pad tiles)."""
+    import numpy as np
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
+    oa, ka, na = E.pack_keys(d1, tm, True)
+    ob, kb, nb = E.pack_keys(d2, tn, True)
+    keyed = E.order_colmajor(
+        E.worklist_from_keys(ka, d1.n, kb, d2.n, 0, tm, tn))
+    every = np.array([(r, c) for r in range(0, na - tm + 1, tm)
+                      for c in range(0, nb - tn + 1, tn)], dtype=np.int32)
+    return (K.device_args_raw(d1, oa, na, lpad, ka, dev),
+            K.device_args_raw(d2, ob, nb, lpad, kb, dev),
+            [K.upload_worklist(w, dev) for w in (keyed, every)])
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (64, 128), (128, 64),
+                                   (768, 768)],
+                         ids=["t128", "t64x128", "t128x64", "t768"])
+@pytest.mark.parametrize("lpad", [24, 48])
+def test_dense_onehot_kernel_equals_plain(cuda, lpad, tiles):
+    """Every score mode at d = 2 and product at d = 0, 1, 3, on sets
+    whose last real tile is ragged (2,000 and 2,500 rows), on tiles
+    whose rows and columns differ, and over every pad row: the kernel
+    equals its plain version and dense_match."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(lpad)
+    d1, d2 = _counted(d1, 7), _counted(d2, 8)
+    tm, tn = tiles
+    a, b, works = _onehot_inputs(d1, d2, cuda, tm, tn)
+    assert a["seqs"].shape[1] == lpad
+    cases = [(m, 2) for m in (K.SC_ONE, K.SC_PRODUCT, K.SC_MIN, K.SC_MAX,
+                              K.SC_SUM)]
+    cases += [(K.SC_PRODUCT, d) for d in (0, 1, 3)]
+    for work in works:
+        for mode, d in cases:
+            kw = dict(differences=d, score_mode=mode, tile_m=tm, tile_n=tn,
+                      r1p=8, r2p=128)
+            before = K.LAUNCHES["dense_onehot"]
+            got = K.dense_onehot(a, b, work, **kw)
+            assert K.LAUNCHES["dense_onehot"] == before + 1
+            want = K.dense_onehot_plain(a, b, work, **kw)
+            ref = K.dense_match_plain(a, b, work, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (mode, d, tiles, lpad)
+            assert torch.equal(got, ref), (mode, d, tiles, lpad)
+            # every planted pair carries an edit: no match at d = 0
+            assert (int(want.sum()) > 0) == (d > 0)
+
+
+def test_dense_onehot_smem_fits_any_lpad(cuda):
+    """The kernel's shared memory stays within a block's at any lpad
+    (K chunks of 512 lanes)."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    lib = K.load_library("dense_onehot")
+    for lpad in (4, 8, 16, 24, 48, 96, 200):
+        assert 0 < lib.dense_onehot_smem_bytes(lpad) <= 232448
+
+
+@pytest.mark.parametrize("genes", [False, True], ids=["vj", "g"])
+def test_dense_matrix_onehot_cuda_equals_cpu(cuda, monkeypatch, genes):
+    """dense_matrix under COMPAIRR_V3=0 launches dense_onehot once and
+    no dense_match, and equals the CPU's matrix and dense_match's."""
+    import numpy as np
+
+    from compairr_tpu_torch.constants import SCORE_PRODUCT
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
+
+    d1, d2 = _planted_pair(24)
+    d1, d2 = _counted(d1, 9), _counted(d2, 10)
+    spec = MatchSpec(differences=2, indels=False, ignore_genes=genes)
+    monkeypatch.delenv("COMPAIRR_V3", raising=False)
+    ref = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, device="cuda")
+    monkeypatch.setenv("COMPAIRR_V3", "0")
+    K.reset_launches()
+    got = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, device="cuda")
+    assert K.LAUNCHES["dense_onehot"] == 1
+    assert K.LAUNCHES["dense_match"] == 0
+    want = dense_matrix(d1, d2, spec, SCORE_PRODUCT, False, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ref)
+    assert want.sum() > 0
+
+
 def test_dense_match_rejects_cpu_worklist(cuda, sets):
     from compairr_tpu_torch.ops import kernels as K
 

@@ -123,13 +123,16 @@ def test_device_route_without_cuda_raises(no_cuda):
     assert m.tolist() == [[4.0]]
 
 
-@pytest.mark.parametrize("indels,score", [(True, "product"),
-                                          (False, "ratio")],
-                         ids=["dense_indel", "dense_general"])
-def test_dense_kernels_without_cuda_raise(no_cuda, indels, score):
-    """The dense runs that take dense_indel (-d 1 -i) and dense_general
-    (ratio) raise the device message with no CUDA and no CPU request,
-    and run when the CPU is asked for."""
+@pytest.mark.parametrize("indels,score,v3", [(True, "product", "1"),
+                                             (False, "ratio", "1"),
+                                             (False, "product", "0")],
+                         ids=["dense_indel", "dense_general", "dense_onehot"])
+def test_dense_kernels_without_cuda_raise(no_cuda, monkeypatch, indels,
+                                          score, v3):
+    """The dense runs that take dense_indel (-d 1 -i), dense_general
+    (ratio) and dense_onehot (COMPAIRR_V3=0) raise the device message
+    with no CUDA and no CPU request, and run when the CPU is asked
+    for."""
     from compairr_tpu_torch.constants import SCORE_PRODUCT, SCORE_RATIO
     from compairr_tpu_torch.core.db import GeneTables, SeqDB
     from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
@@ -143,14 +146,16 @@ def test_dense_kernels_without_cuda_raise(no_cuda, indels, score):
         keep=[None, None], repertoire_ids=["R0"], genes=GeneTables(),
         longest=4,
     )
+    monkeypatch.setenv("COMPAIRR_V3", v3)
     spec = MatchSpec(differences=1, indels=indels, ignore_genes=False)
     score_int = SCORE_PRODUCT if score == "product" else SCORE_RATIO
     with pytest.raises(RuntimeError, match="COMPAIRR_DEVICE=cpu"):
         dense_matrix(db, db, spec, score_int, False)
     m = dense_matrix(db, db, spec, score_int, False, device="cpu")
-    # with the indel both rows match each other: (2 + 3)^2; ratio
-    # without it: each row matches itself only, 2/2 + 3/3
-    assert m.tolist() == ([[25.0]] if indels else [[2.0]])
+    # with the indel both rows match each other: (2 + 3)^2; without it
+    # each row matches itself only: ratio 2/2 + 3/3, product 2^2 + 3^2
+    want = 25.0 if indels else (2.0 if score == "ratio" else 13.0)
+    assert m.tolist() == [[want]]
 
 
 def test_tile_route_without_cuda_raises(no_cuda):
