@@ -8,8 +8,9 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
   1. prints the card (nvidia-smi name and power limit, torch's name);
   2. builds the kernels with nvcc, one process per source, all started
      together, and prints the build seconds;
-  3. holds dense_match against its plain PyTorch version on the card at
-     full width (tile 768, lpad 24, r1p 64, r2p 128): the first
+  3. holds dense_match (which reads the residue bit planes of
+     kernels.residue_planes) against its plain PyTorch version on the
+     card at full width (tile 768, lpad 24, r1p 64, r2p 128): the first
      worklist tiles of the workload below, every score mode, and
      torch.equal on the int64 matrices;
   4. drives the dense engine (ops.engine.dense_matrix) over the 1M x 1M
@@ -85,12 +86,20 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      nucleotide pair (lpad 48); drives dense_matrix under
      COMPAIRR_V3=0 over the kernel workload (sum 24,865,230) and the
      1M x 1M -g run, each equal to dense_match's matrix; times
-     dense_onehot against dense_match in turns (tile 768, tile 128,
-     -g at tile 768) with their plain version, the bound, the
+     dense_onehot against dense_match in turns (kernel workload at
+     tiles 768 and 128, -g at 768, the 100k -g cut at 768 and 128) and
+     dense_match alone on -g at the CLI's tile (128), with the plain
+     versions, the bound, dense_match's design floor (C (P + 2) integer
+     operations an equal-key pair on the CUDA cores), the one-hot
      formulation's tensor-core operations and a torch._int_mm of the
      same depth as a rate yardstick; and runs the CLI's -m -d 2 under
      COMPAIRR_ENGINE=dense COMPAIRR_V3=0 against the host route;
- 19. prints the card line, one JSON line listing every kernel, and as
+ 19. times the tile route of find_pairs under -g (keys by length alone)
+     on the 100k cut and the 1M x 1M sets, -d 1 -i and -d 2 under
+     COMPAIRR_PIGEONHOLE=0: find_pairs' wall, phases and launches,
+     count_tiles and extract_tiles (CUDA events) and their bounds;
+     timing only;
+ 20. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -152,6 +161,13 @@ LEN_LO, LEN_HI = 9, 22
 # op/s and device memory byte/s (NVIDIA's H100 SXM data sheet, at its
 # full 700 W power limit), by the name torch gives the card
 PEAKS = {"NVIDIA H100 80GB HBM3": (1979e12, 3.35e12)}
+# 32-bit integer lane operations a second on the CUDA cores, for
+# dense_match's design floor: 132 SMs x 64 a clock (LOP3, integer add
+# and compare; popcount at 16 a clock on its own pipe) x 1.98 GHz, the
+# H100 SXM's boost clock (NVIDIA's data sheet, and the arithmetic
+# instruction throughput table of the CUDA C++ documentation for compute
+# capability 9.0)
+CORE_INT_OPS = {"NVIDIA H100 80GB HBM3": 132 * 64 * 1.98e9}
 
 
 def synth_arrays(n, n_reps, n_v, n_j, seed):
@@ -387,9 +403,9 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
             wide=False, by_vjl=True):
     """A dense kernel's inputs on dev, as engine.dense_matrix builds
     them: both sets' derived rows (reversed rows with indels; int64 key
-    and count rows when wide, for dense_general) and the column-major
-    worklist over keys k-delta..k+delta; by_vjl=False keys the rows by
-    length alone (-g)."""
+    and count rows when wide, for dense_general; residue planes
+    otherwise, for dense_match) and the column-major worklist over keys
+    k-delta..k+delta; by_vjl=False keys the rows by length alone (-g)."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
@@ -399,11 +415,10 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
     work = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     )
+    rows = dict(indels=indels, wide=wide, planes=not (indels or wide))
     return {
-        "a": K.device_args_raw(d1, oa, na, lpad, ka, dev, indels=indels,
-                               wide=wide),
-        "b": K.device_args_raw(d2, ob, nb, lpad, kb, dev, indels=indels,
-                               wide=wide),
+        "a": K.device_args_raw(d1, oa, na, lpad, ka, dev, **rows),
+        "b": K.device_args_raw(d2, ob, nb, lpad, kb, dev, **rows),
         "work": work,
         "work_dev": K.upload_worklist(work, dev),
         "keys": (ka[: d1.n], kb[: d2.n]),
@@ -550,7 +565,9 @@ def dense_bound(p, card_name):
     operations over the int8 peak. Bytes: each row a worklist tile
     covers read once (residues, reversed residues on indel runs, key,
     repertoire and count; the pad rows past the last tile are never
-    read), the worklist read once, the matrix written once. Operations:
+    read; residues counted as int8 rows, dense_match's bit planes being
+    the same input in another layout), the worklist read once, the
+    matrix written once. Operations:
     what this data needs, one compare and one add per residue of every
     equal-key pair and, on indel runs, two (prefix and suffix) per
     residue of every pair with keys 1 apart (the other pairs of the
@@ -561,7 +578,7 @@ def dense_bound(p, card_name):
     n_bytes = p["work"].nbytes + p["r1p"] * p["r2p"] * 8
     for side, col in ((p["a"], 0), (p["b"], 1)):
         row_bytes = sum(t[0].numel() * t.element_size()
-                        for t in side.values())
+                        for k, t in side.items() if k != "planes")
         n_bytes += row_bytes * touched_rows(
             p["work"][:, col], p["tile"], side["seqs"].shape[0]
         )
@@ -728,6 +745,18 @@ def onehot_ops(p):
     return 2.0 * len(p["work"]) * p["tile"] ** 2 * K.onehot_width(p["lpad"])
 
 
+def match_floor(q, card_name):
+    """dense_match's design floor on q (prepare's): C (P + 2) integer
+    operations an equal-key pair (P LOP3 folding the planes' XORs into
+    the mismatch mask, one popcount, one compare, each of the C
+    chunks) over the CUDA cores' integer rate, in ms."""
+    n_chunks, n_planes = q["a"]["planes"].shape[1:]
+    ops = (float(equal_key_pairs(*q["keys"])) * n_chunks
+           * (n_planes + 2))
+    return {"floor_ops": ops,
+            "floor_ms": ops / CORE_INT_OPS[card_name] * 1e3}
+
+
 def int_mm_yardstick(macs, lpad, dev):
     """A rate yardstick for the product stage, which the port never
     calls: torch._int_mm on int8 one-hot rows of depth K =
@@ -866,7 +895,7 @@ def tile_pair_counts(p, work):
     return out_eq, out_pm
 
 
-def tile_bound(p, groups, out_bytes, card_name):
+def tile_bound(p, groups, out_bytes, card_name, pairs=None):
     """Least time the card could take for the kernel calls over groups
     [(work, class)]: the larger of their bytes over the memory rate and
     their operations over the int8 peak. Bytes: each row a tile touches
@@ -876,7 +905,9 @@ def tile_bound(p, groups, out_bytes, card_name):
     equal-key pair of a class that tests Hamming and 2 lpad for each
     key-distance-1 pair of a class that tests indels, counted on this
     data (the other pairs of a tile differ in key and need no residue
-    work)."""
+    work). pairs=(equal-key, key-distance-1) gives the counts of groups
+    that cover every pair of the run, in place of counting them tile by
+    tile."""
     from compairr_tpu_torch.ops import kernels as K
 
     if card_name not in PEAKS:
@@ -899,6 +930,7 @@ def tile_bound(p, groups, out_bytes, card_name):
     eq_pairs = pm_pairs = 0
     for work, cls in groups:
         n_bytes += work.nbytes
+    for work, cls in ([] if pairs else groups):
         eq, pm = tile_pair_counts(p, work)
         if cls != K.CLS_INDEL_ONLY:
             eq_pairs += int(eq.sum())
@@ -906,6 +938,9 @@ def tile_bound(p, groups, out_bytes, card_name):
         if cls != K.CLS_HAMMING:
             pm_pairs += int(pm.sum())
             ops += 2 * lpad * int(pm.sum())
+    if pairs:
+        eq_pairs, pm_pairs = pairs
+        ops = lpad * eq_pairs + 2 * lpad * pm_pairs
     bytes_ms = n_bytes / peak_bw * 1e3
     ops_ms = ops / peak_ops * 1e3
     return {
@@ -1201,6 +1236,83 @@ def phase_prefetch(workdir, a, b):
               f"(s) {r['wall_s']}, mean {np.mean(r['wall_s'])}; last run by "
               f"phase {r['phases_s']}")
     return res
+
+
+def tile_route_timing(a, b, spec, label):
+    """Timing only, no plain version: find_pairs on the card (its wall,
+    phase split and launches, every count set to 0 just before), then
+    count_tiles over each worklist stream and extract_tiles over each
+    slab of the nonzero tiles, once each after one warm call (CUDA
+    events), with their bounds. The count's bound takes the pair counts
+    of the whole run (every equal-key pair lies in a Hamming or both
+    tile, every key-distance-1 pair in a both or indel-only tile), so
+    no per-tile count over millions of tiles is needed; the extract's
+    counts its few slabs' pairs."""
+    import torch
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    name = torch.cuda.get_device_name(0)
+    dev = torch.device(DEVICE)
+    K.reset_launches()
+    got, wall, split = timed(lambda: E.find_pairs(a, b, spec, device=DEVICE,
+                                                  want_dist=False))
+    launches = {k: K.LAUNCHES[k] for k in ("count_tiles", "extract_tiles")}
+    route = E.LAST_ROUTE
+    if route != "tiles" or min(launches.values()) < 1:
+        raise AssertionError(f"{label}: route {route}, launches {launches}")
+    tp = tile_inputs(a, b, spec, dev)
+    count_ms = 0.0
+    filtered = []
+    last = {}  # the timed call's result
+    for work, cls in tp["streams"]:
+        wd = K.upload_worklist(work, dev)
+        kw = tile_kw(tp, cls)
+        count_ms += cuda_ms(lambda: last.update(
+            out=K.count_tiles(tp["a"], tp["b"], wd, **kw)), reps=1, warm=1)
+        counts = last["out"].cpu().numpy()
+        filtered.append((work[counts > 0], counts[counts > 0], cls))
+    total = sum(int(c.sum()) for _, c, _ in filtered)
+    k_cap = E.extract_capacity(total, tp["tile"])
+    slabs = [(fw[s0:s1], cls, k) for fw, tc, cls in filtered
+             for s0, s1, k in E.pack_slabs(tc, tp["s_extract"], k_cap)]
+    extract_ms = 0.0
+    words = 0
+    for slab, cls, k in slabs:
+        wd = K.upload_worklist(slab, dev)
+        kw = tile_kw(tp, cls)
+        extract_ms += cuda_ms(lambda: last.update(
+            out=K.extract_tiles(tp["a"], tp["b"], wd, k=k, **kw)),
+            reps=1, warm=1)
+        words += last["out"][2]
+    ka, na, kb, nb = tp["keys"]
+    eq = equal_key_pairs(ka[:na], kb[:nb])
+    pm = (equal_key_pairs(ka[:na] + 1, kb[:nb])
+          + equal_key_pairs(ka[:na] - 1, kb[:nb])) if spec.indels else 0
+    cb = tile_bound(tp, tp["streams"],
+                    4 * sum(len(w) for w, _ in tp["streams"]), name,
+                    pairs=(eq, pm))
+    eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
+                    8 * words + 4 * len(slabs), name)
+    print(f"  {label}: route {route}, {len(got[0])} pairs, launches "
+          f"{launches}, find_pairs {wall:.6f} s, by phase (s) {split}; "
+          f"{tp['tiles']} worklist tiles of {tp['tile']} in streams "
+          f"{[(len(w), c) for w, c in tp['streams']]}: count_tiles "
+          f"{count_ms:.4f} ms (bound {cb['bound_ms']:.6f} ms by "
+          f"{cb['bound_by']}; {cb['equal_key_pairs']} equal-key and "
+          f"{cb['key_distance_1_pairs']} key-distance-1 pairs, "
+          f"{cb['ops']:.4g} ops), {total} matches in {len(slabs)} slabs: "
+          f"extract_tiles {extract_ms:.4f} ms (bound {eb['bound_ms']:.6f} "
+          f"ms by {eb['bound_by']}) (CUDA events, 1 launch each after a "
+          f"warm one)")
+    return {"pairs": len(got[0]), "launches": launches, "find_pairs_s": wall,
+            "find_pairs_phases_s": split, "tiles": tp["tiles"],
+            "tile": tp["tile"],
+            "streams": [(len(w), c) for w, c in tp["streams"]],
+            "count_ms": count_ms, "count_bound": cb, "matches": total,
+            "slabs": len(slabs), "extract_ms": extract_ms,
+            "extract_bound": eb}
 
 
 def main() -> int:
@@ -1771,17 +1883,22 @@ def main() -> int:
                 wall = time.perf_counter() - t0
                 launches = dict(K.LAUNCHES)
             with env(COMPAIRR_V3=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 ref = E.dense_matrix(d1, d2, spec, SCORE_PRODUCT, False,
                                      tile_m=TILE, tile_n=TILE, device=DEVICE)
+                ref_wall = time.perf_counter() - t0
             same = np.array_equal(m, ref)
             print(f"  dense_matrix {tag}, COMPAIRR_V3=0: sum {m.sum():.0f}, "
                   f"launches {launches}, {wall:.6f} s end to end; equal to "
-                  f"dense_match's matrix (sum {ref.sum():.0f}): {same}")
+                  f"dense_match's matrix (sum {ref.sum():.0f}, {ref_wall:.6f} "
+                  f"s end to end): {same}")
             if not same:
                 raise AssertionError(f"{tag}: dense_onehot's matrix differs")
             if launches["dense_onehot"] < 1 or launches["dense_match"]:
                 raise AssertionError(f"{tag}: launches {launches}")
             sums[tag] = {"matrix_sum": float(m.sum()), "wall_s": wall,
+                         "dense_match_wall_s": ref_wall,
                          "launches": launches["dense_onehot"]}
         if sums["kernel workload"]["matrix_sum"] != KERNEL_CHECKSUM:
             raise AssertionError("dense_onehot's matrix sum is not "
@@ -1789,55 +1906,74 @@ def main() -> int:
         res["matrix"] = sums
 
         # (c) dense_onehot against dense_match, in turns, on one card
+        # (dense_match alone on the 1M -g run at the CLI's tile, 128)
         res["timing"] = {}
-        for tag, mk, plain in (
-            ("kernel workload, tile 768", lambda: p, True),
+        both = ("dense_onehot", "dense_match", "dense_match", "dense_onehot")
+        alone = ("dense_match", "dense_match")
+        for tag, mk, plain, turns in (
+            ("kernel workload, tile 768", lambda: p, True, both),
             ("kernel workload, tile 128", lambda: prepare(d1, d2, dev, 128),
-             True),
+             True, both),
             ("-g, tile 768", lambda: prepare(d1, d2, dev, by_vjl=False),
-             False),
+             False, both),
+            ("-g, tile 128",
+             lambda: prepare(d1, d2, dev, E.TILE_M, by_vjl=False), False,
+             alone),
             (f"-g, {G_ROWS} rows a set, tile 768",
-             lambda: prepare(*g_cut, dev, by_vjl=False), True),
+             lambda: prepare(*g_cut, dev, by_vjl=False), True, both),
+            (f"-g, {G_ROWS} rows a set, tile 128",
+             lambda: prepare(*g_cut, dev, E.TILE_M, by_vjl=False), True,
+             both),
         ):
             q = mk()
             fns = {"dense_onehot": lambda: run_onehot(q, K.SC_PRODUCT),
                    "dense_match": lambda: run_kernel(q, K.SC_PRODUCT)}
-            walls = {k: [] for k in fns}
-            for kname in ("dense_onehot", "dense_match", "dense_match",
-                          "dense_onehot"):
+            walls = {k: [] for k in turns}
+            for kname in turns:
                 walls[kname].append(cuda_ms(fns[kname], reps=10))
             ms = {k: float(np.mean(v)) for k, v in walls.items()}
-            plain_ms = None
-            if plain:
+            plain_ms = {}
+            plains = {"dense_onehot": lambda: run_onehot(q, K.SC_PRODUCT,
+                                                         plain=True),
+                      "dense_match": lambda: run_plain(q, K.SC_PRODUCT)}
+            for kname in ms if plain else ():
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                run_onehot(q, K.SC_PRODUCT, plain=True)
+                plains[kname]()
                 torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t0) * 1e3
+                plain_ms[kname] = (time.perf_counter() - t0) * 1e3
             bd = dense_bound(q, name)
-            ops = onehot_ops(q)
-            yard = int_mm_yardstick(ops / 2, q["lpad"], dev)
-            res["timing"][tag] = {
-                "tiles": len(q["work"]), "tile": q["tile"], "ms": ms,
-                "ms_halves": walls, "plain_ms": plain_ms, **bd,
-                "formulation_ops": ops,
-                "formulation_ms": ops / PEAKS[name][0] * 1e3,
-                "int_mm": yard,
-            }
-            print(f"  {tag}: {len(q['work'])} worklist tiles; dense_onehot "
-                  f"{ms['dense_onehot']:.4f} ms, dense_match "
-                  f"{ms['dense_match']:.4f} ms a launch (CUDA events, 2 x 10 "
-                  f"launches each, in turns: {walls}), 1 launch a "
-                  f"dense_matrix call; plain "
-                  f"{'not timed' if plain_ms is None else f'{plain_ms:.1f} ms'}"
-                  f"; bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
-                  f"({bd['bytes']} bytes -> {bd['bytes_ms']:.6f} ms; "
-                  f"{bd['equal_key_pairs']} equal-key pairs, {bd['ops']:.4g} "
-                  f"ops -> {bd['ops_ms']:.6f} ms); formulation {ops:.4g} int8 "
-                  f"tensor-core ops -> {ops / PEAKS[name][0] * 1e3:.4f} ms at "
-                  f"peak; yardstick (not called by the port) torch._int_mm "
-                  f"{yard['shape']} {yard['ms']:.4f} ms ({yard['tops']:.1f} "
-                  f"TOP/s), x{yard['scale']:.4g} -> {yard['ms_scaled']:.4f} ms")
+            fl = match_floor(q, name)
+            row = {"tiles": len(q["work"]), "tile": q["tile"], "ms": ms,
+                   "ms_halves": walls, "plain_ms": plain_ms, **bd, **fl}
+            text = (f"  {tag}: {len(q['work'])} worklist tiles; "
+                    + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                    + f" a launch (CUDA events, {len(turns) // len(ms)} x 10"
+                    f" launches each, in turns: {walls}), 1 launch a "
+                    f"dense_matrix call; plain versions "
+                    + (", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
+                       or "not timed")
+                    + f"; bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+                    f"({bd['bytes']} bytes -> {bd['bytes_ms']:.6f} ms; "
+                    f"{bd['equal_key_pairs']} equal-key pairs, "
+                    f"{bd['ops']:.4g} ops -> {bd['ops_ms']:.6f} ms); "
+                    f"dense_match's design floor {fl['floor_ops']:.4g} "
+                    f"integer ops -> {fl['floor_ms']:.4f} ms")
+            if "dense_onehot" in ms:
+                ops = onehot_ops(q)
+                yard = int_mm_yardstick(ops / 2, q["lpad"], dev)
+                row.update(formulation_ops=ops,
+                           formulation_ms=ops / PEAKS[name][0] * 1e3,
+                           int_mm=yard)
+                text += (f"; dense_onehot's formulation {ops:.4g} int8 "
+                         f"tensor-core ops -> "
+                         f"{ops / PEAKS[name][0] * 1e3:.4f} ms at peak; "
+                         f"yardstick (not called by the port) torch._int_mm "
+                         f"{yard['shape']} {yard['ms']:.4f} ms "
+                         f"({yard['tops']:.1f} TOP/s), x{yard['scale']:.4g} "
+                         f"-> {yard['ms_scaled']:.4f} ms")
+            res["timing"][tag] = row
+            print(text)
             del q
 
         # (d) the CLI under COMPAIRR_ENGINE=dense COMPAIRR_V3=0
@@ -1869,6 +2005,24 @@ def main() -> int:
 
     report["onehot"] = phase("18 dense onehot", p18)
     workdir.cleanup()
+
+    def p19():
+        res = {}
+        g_cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2)]
+        for rows, (a, b) in ((G_ROWS, g_cut), (N_ROWS, (d1, d2))):
+            for tag, spec, pigeonhole in (
+                ("-d 1 -i", E.MatchSpec(differences=1, indels=True,
+                                        ignore_genes=True), None),
+                ("-d 2, COMPAIRR_PIGEONHOLE=0",
+                 E.MatchSpec(differences=DIFFERENCES, indels=False,
+                             ignore_genes=True), "0"),
+            ):
+                label = f"-g {tag}, {rows} rows a set"
+                with env(COMPAIRR_PIGEONHOLE=pigeonhole):
+                    res[label] = tile_route_timing(a, b, spec, label)
+        return res
+
+    report["tiles_g"] = phase("19 tile route under -g (timing)", p19)
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
@@ -1949,7 +2103,7 @@ def main() -> int:
         "launches": oh["matrix"]["kernel workload"]["launches"],
         "max_abs_err": oh["max_abs_err"],
         "ms": oh_t["ms"]["dense_onehot"],
-        "plain_ms": oh_t["plain_ms"],
+        "plain_ms": oh_t["plain_ms"]["dense_onehot"],
         "bound_ms": oh_t["bound_ms"],
         "bound_by": oh_t["bound_by"],
         "library_ms": None,

@@ -451,12 +451,12 @@ def dense_matrix(
         indels=use_indels, score_int=score_int,
         ignore_counts=ignore_counts, cmax=cmax, key_max=kmax,
     )
-    wide = kind == "dense_general"
+    rows = dict(indels=use_indels, wide=kind == "dense_general",
+                planes=kind == "dense_match")
 
-    da = K.device_args_raw(db1, order_a, npad_a, lmax, key_a, dev,
-                           indels=use_indels, wide=wide)
+    da = K.device_args_raw(db1, order_a, npad_a, lmax, key_a, dev, **rows)
     db_dev = da if shared else K.device_args_raw(
-        db2, order_b, npad_b, lmax, key_b, dev, indels=use_indels, wide=wide
+        db2, order_b, npad_b, lmax, key_b, dev, **rows
     )
     work = order_colmajor(
         worklist_from_keys(key_a, db1.n, key_b, db2.n, int(use_indels),

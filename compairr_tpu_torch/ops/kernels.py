@@ -9,8 +9,10 @@ engine and the sparse tile route run:
     and unpacks them (_gathered_seqs / _unpack_residues) and gathers
     the repertoire and count rows (device_args_raw, the dense engine's)
     or reverses the rows within their lengths and derives the key and
-    original-index rows (device_rows_raw, the tile route's). Torch ops,
-    not kernels. No one-hot rows are derived: the kernels read residues.
+    original-index rows (device_rows_raw, the tile route's), and for
+    dense_match the residue bit planes (residue_planes: one int32 word
+    per 32 positions and residue bit). Torch ops, not kernels. No
+    one-hot rows are derived: the kernels read residues or planes.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
     the JAX package's v3 / v2 / v2c / v1 ladder without the TPU's
     memory gates.
@@ -155,15 +157,56 @@ def _shrink(x: np.ndarray, sentinel: int, m: int) -> np.ndarray:
     return out.astype(np.int32)
 
 
+PLANE_BITS = 32  # residue positions per plane word (one chunk)
+_PLANE_DERIVE_ELEMS = 1 << 23  # int64 bit temporaries per derive step
+
+
+def plane_chunks(lpad: int) -> int:
+    """C, the 32-position chunks of a residue row of width lpad."""
+    return -(-lpad // PLANE_BITS)
+
+
+def residue_planes(seqs: torch.Tensor, n_planes: int) -> torch.Tensor:
+    """[npad, lpad] int8 residues -> int32 [npad, C, P] bit planes, on
+    seqs' device (C = plane_chunks(lpad), P = n_planes): bit p of word
+    [row, c, q] is bit q of the residue at position 32 c + p. Positions
+    past lpad are 0. Every residue code is at most the pad code, so
+    P = pad_value.bit_length() planes hold all of them (5 for amino
+    acids, 3 for nucleotides), and two rows differ at a position exactly
+    where some plane differs: popc(OR_q (A_q ^ B_q)) summed over the
+    chunks is their Hamming distance. The words are summed in int64 and
+    moved into int32's range, so bit 31 survives as the sign bit; rows
+    go in chunks, bounding the int64 temporaries at scale."""
+    npad, lpad = seqs.shape
+    c = plane_chunks(lpad)
+    dev = seqs.device
+    out = torch.empty((npad, c, n_planes), dtype=torch.int32, device=dev)
+    q = torch.arange(n_planes, device=dev).view(1, 1, n_planes, 1)
+    weight = 2 ** torch.arange(PLANE_BITS, dtype=torch.int64, device=dev)
+    step = max(1, _PLANE_DERIVE_ELEMS // (c * n_planes * PLANE_BITS))
+    for s in range(0, npad, step):
+        x = seqs[s : s + step].to(torch.int64)
+        x = torch.nn.functional.pad(x, (0, c * PLANE_BITS - lpad))
+        bits = (x.view(len(x), c, 1, PLANE_BITS) >> q) & 1
+        words = (bits * weight).sum(-1)
+        out[s : s + len(x)] = torch.where(
+            words >= 1 << 31, words - (1 << 32), words
+        ).to(torch.int32)
+    return out
+
+
 def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
                     sort_key: np.ndarray, device, *, indels: bool = False,
-                    wide: bool = False) -> dict:
+                    wide: bool = False, planes: bool = False) -> dict:
     """Upload a SeqDB's raw arrays (plus one all-pad sentinel row) and
     derive the key-sorted layouts the dense kernels read, on `device`:
 
       seqs   int8  [npad, lpad]  residues, pad rows all pad residue
       rseqs  int8  [npad, lpad]  rows reversed within their lengths
                                  (only with indels)
+      planes int32 [npad, C, P]  residue_planes of seqs, P =
+                                 pad_value.bit_length() (only with
+                                 planes: dense_match's rows)
       key32  int32 [npad]        bucket key, pads -1   (not wide)
       cnt    int32 [npad]        duplicate count, pads 0 (not wide)
       key64  int64 [npad]        bucket key, pads -1   (wide)
@@ -206,6 +249,8 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
     if indels:
         out["rseqs"] = _reversed_rows(seqs, (k & 0xFFFF).clamp(0, lpad),
                                       pad_val)
+    if planes:
+        out["planes"] = residue_planes(seqs, pad_val.bit_length())
     return out
 
 
@@ -479,6 +524,31 @@ def _check_smem(name: str, smem: int, tile_n: int, lpad: int) -> None:
         )
 
 
+def _check_planes(side: dict, name: str, dev: torch.device) -> None:
+    """A side's residue planes (residue_planes of its seqs): contiguous
+    int32 [npad, plane_chunks(lpad), P] with 1 <= P <= 5, on dev, 16-byte
+    aligned on the card."""
+    seqs, pl = side["seqs"], side.get("planes")
+    npad, lpad = seqs.shape
+    if (
+        pl is None
+        or pl.dtype != torch.int32
+        or pl.dim() != 3
+        or pl.shape[:2] != (npad, plane_chunks(lpad))
+        or not 1 <= pl.shape[2] <= 5
+        or not pl.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}['planes'] must be a contiguous int32 [{npad}, "
+            f"{plane_chunks(lpad)}, P] tensor with 1 <= P <= 5 "
+            "(residue_planes of the rows)"
+        )
+    if pl.device != dev:
+        raise ValueError(f"{name}['planes'] is on {pl.device}, expected {dev}")
+    if dev.type == "cuda" and pl.data_ptr() % 16:
+        raise ValueError(f"{name}['planes'] is not 16-byte aligned")
+
+
 def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
                 score_mode: int, tile_m: int, tile_n: int, r1p: int,
                 r2p: int) -> torch.Tensor:
@@ -486,17 +556,27 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     every worklist tile with equal keys, rep >= 0 on both sides and at
     most `differences` differing residues. a/b are device_args_raw
     dicts, whose rows are key-sorted with pads (key -1) last: the
-    kernel binary-searches each tile's b keys, so it needs that order;
-    the plain version does not. work is int32 [T, 2] element starts of
-    tiles inside both row sets, on the same device. CUDA tensors launch
-    csrc/dense_match.cu; CPU tensors take dense_match_plain."""
+    kernel splits each tile into its equal-key runs, so it needs that
+    order; the plain version does not. The kernel reads the residue
+    planes (device_args_raw with planes), which the CUDA path requires
+    and the plain version ignores (they are checked where present).
+    work is int32 [T, 2] element starts of tiles inside both row sets,
+    on the same device. CUDA tensors launch csrc/dense_match.cu; CPU
+    tensors take dense_match_plain."""
     dev = a["seqs"].device
     _check_side(a, "a", dev)
     _check_side(b, "b", dev)
     lpad = a["seqs"].shape[1]
     if b["seqs"].shape[1] != lpad:
         raise ValueError("a and b residue rows differ in width")
+    if dev.type == "cuda" or "planes" in a or "planes" in b:
+        _check_planes(a, "a", dev)
+        _check_planes(b, "b", dev)
+        if a["planes"].shape[2] != b["planes"].shape[2]:
+            raise ValueError("a and b residue planes differ in number")
     _check_work(work, dev)
+    if tile_m <= 0 or tile_n <= 0:
+        raise ValueError(f"tiles must be positive, got {tile_m}x{tile_n}")
     if score_mode == SC_RATIO:
         raise ValueError("dense_match sums integers: no ratio score")
     _assert_tiles_inside(a, b, work, tile_m, tile_n, "dense_match")
@@ -507,25 +587,25 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
         return dense_match_plain(a, b, work, **kw)
     if dev.type != "cuda":
         raise ValueError(f"dense_match runs on cuda or cpu tensors, not {dev}")
-    if lpad % 4:
-        raise ValueError(f"dense_match needs lpad % 4 == 0, got {lpad}")
+    n_chunks, n_planes = a["planes"].shape[1:]
     lib = load_library("dense_match")
-    _check_smem("dense_match", lib.dense_match_smem_bytes(tile_n, lpad),
-                tile_n, lpad)
+    _check_smem("dense_match",
+                lib.dense_match_smem_bytes(tile_m, tile_n, n_chunks,
+                                           n_planes), tile_n, lpad)
     out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
     n_tiles = work.shape[0]
     if n_tiles == 0:
         return out
     with torch.cuda.device(dev):
         err = lib.dense_match_launch(
-            a["seqs"].data_ptr(), a["key32"].data_ptr(),
+            a["planes"].data_ptr(), a["key32"].data_ptr(),
             a["rep"].data_ptr(), a["cnt"].data_ptr(),
-            b["seqs"].data_ptr(), b["key32"].data_ptr(),
+            b["planes"].data_ptr(), b["key32"].data_ptr(),
             b["rep"].data_ptr(), b["cnt"].data_ptr(),
             work.data_ptr(), n_tiles,
-            a["seqs"].shape[0], b["seqs"].shape[0], tile_m, tile_n, lpad,
-            differences, score_mode, r2p, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            a["seqs"].shape[0], b["seqs"].shape[0], tile_m, tile_n,
+            n_chunks, n_planes, differences, score_mode, r2p,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -1155,8 +1235,8 @@ def dense_general(a: dict, b: dict, work: torch.Tensor, *, differences: int,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dense_match": {
-        "dense_match_launch": ([_P] * 9 + [_I] * 9 + [_P, _P], _I),
-        "dense_match_smem_bytes": ([_I, _I], _I),
+        "dense_match_launch": ([_P] * 9 + [_I] * 10 + [_P, _P], _I),
+        "dense_match_smem_bytes": ([_I] * 4, _I),
         "dense_match_error_string": ([_I], ctypes.c_char_p),
     },
     "dense_onehot": {

@@ -56,8 +56,8 @@ def _inputs(sets, dev, tile):
     work = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, 0, tile, tile)
     )
-    return (K.device_args_raw(d1, oa, na, lpad, ka, dev),
-            K.device_args_raw(d2, ob, nb, lpad, kb, dev),
+    return (K.device_args_raw(d1, oa, na, lpad, ka, dev, planes=True),
+            K.device_args_raw(d2, ob, nb, lpad, kb, dev, planes=True),
             K.upload_worklist(work, dev))
 
 
@@ -516,6 +516,210 @@ def test_dense_matrix_onehot_cuda_equals_cpu(cuda, monkeypatch, genes):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, ref)
     assert want.sum() > 0
+
+
+MODES = (0, 1, 2, 3, 4)  # SC_ONE, SC_PRODUCT, SC_MIN, SC_MAX, SC_SUM
+
+
+def _lpad_pair(lpad):
+    """Two planted sets (2,000 and 2,500 rows, counts 1..99) whose rows
+    pad to lpad: amino acids, nucleotides at lpad 40 (3 planes)."""
+    nt = lpad == 40
+    lr = (lpad - 8, lpad - 2)
+    d1 = _planted_db(2000, lr, 51, nt)
+    d2 = _planted_db(2500, lr, 52, nt, src=d1)
+    return _counted(d1, 11), _counted(d2, 12)
+
+
+def _match_inputs(d1, d2, dev, tm, tn, by_vjl=True):
+    """dense_match inputs with planes (each set packed at its own tile)
+    and two worklists: the one from the keys and every tile pair of
+    both padded row sets (all-pad tiles included)."""
+    import numpy as np
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
+    oa, ka, na = E.pack_keys(d1, tm, by_vjl)
+    ob, kb, nb = E.pack_keys(d2, tn, by_vjl)
+    keyed = E.order_colmajor(
+        E.worklist_from_keys(ka, d1.n, kb, d2.n, 0, tm, tn))
+    every = np.array([(r, c) for r in range(0, na - tm + 1, tm)
+                      for c in range(0, nb - tn + 1, tn)], dtype=np.int32)
+    a = K.device_args_raw(d1, oa, na, lpad, ka, dev, planes=True)
+    b = a if d2 is d1 and tm == tn else K.device_args_raw(
+        d2, ob, nb, lpad, kb, dev, planes=True)
+    return a, b, [K.upload_worklist(w, dev) for w in (keyed, every)]
+
+
+def _check_match(a, b, works, tm, tn, ds, modes=MODES):
+    """The kernel equals its plain version on every worklist, distance
+    and mode, one launch a call; some pair matched."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    total = 0
+    for work in works:
+        for d in ds:
+            for mode in modes:
+                kw = dict(differences=d, score_mode=mode, tile_m=tm,
+                          tile_n=tn, r1p=8, r2p=128)
+                before = K.LAUNCHES["dense_match"]
+                got = K.dense_match(a, b, work, **kw)
+                assert K.LAUNCHES["dense_match"] == before + 1
+                want = K.dense_match_plain(a, b, work, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (d, mode, tm, tn)
+                total += int(want.sum())
+    assert total > 0
+
+
+@pytest.mark.parametrize("lpad", [24, 32, 40, 96, 136])
+def test_dense_match_planes_at_every_lpad(cuda, lpad):
+    """C = 1 (lpad 24, 32: bit 31 in use), 2 with 3 nucleotide planes
+    (40), 3 (96) and 5 (136, the runtime-C loop); d = 0..3, every
+    score mode."""
+    d1, d2 = _lpad_pair(lpad)
+    a, b, works = _match_inputs(d1, d2, cuda, 128, 128)
+    assert tuple(a["planes"].shape[1:]) == (-(-lpad // 32),
+                                            3 if lpad == 40 else 5)
+    _check_match(a, b, works, 128, 128, ds=(0, 1, 2, 3))
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (768, 768),
+                                   (64, 128), (128, 64), (768, 128)],
+                         ids=["t64", "t128", "t768", "t64x128", "t128x64",
+                              "t768x128"])
+def test_dense_match_tiles(cuda, tiles):
+    tm, tn = tiles
+    d1, d2 = _lpad_pair(24)
+    a, b, works = _match_inputs(d1, d2, cuda, tm, tn)
+    _check_match(a, b, works, tm, tn, ds=(0, 2))
+
+
+@pytest.mark.parametrize("tile", [128, 768])
+def test_dense_match_single_key_tiles(cuda, tile):
+    """-g: keys by length alone, so most tiles are one equal-key
+    rectangle."""
+    d1, d2 = _lpad_pair(24)
+    a, b, works = _match_inputs(d1, d2, cuda, tile, tile, by_vjl=False)
+    _check_match(a, b, works, tile, tile, ds=(1, 3), modes=(1, 4))
+
+
+def test_dense_match_one_row_runs(cuda):
+    """Every row its own key (a self-comparison): each run is one a row
+    against one b row."""
+    import numpy as np
+    from dataclasses import replace
+
+    d1, _ = _lpad_pair(24)
+    d1 = replace(d1, v_no=np.arange(d1.n, dtype=np.int32))
+    a, b, works = _match_inputs(d1, d1, cuda, 128, 128)
+    assert a is b
+    _check_match(a, b, works, 128, 128, ds=(0, 2), modes=(0, 1))
+
+
+def _raw_match(a, b, work, tm, tn, d, mode):
+    """The C launch itself, without the wrapper's checks (which admit
+    only tiles inside both row sets): int64 [8, 128]."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    lib = K.load_library("dense_match")
+    out = torch.zeros((8, 128), dtype=torch.int64, device=work.device)
+    n_chunks, n_planes = a["planes"].shape[1:]
+    err = lib.dense_match_launch(
+        a["planes"].data_ptr(), a["key32"].data_ptr(), a["rep"].data_ptr(),
+        a["cnt"].data_ptr(), b["planes"].data_ptr(), b["key32"].data_ptr(),
+        b["rep"].data_ptr(), b["cnt"].data_ptr(), work.data_ptr(),
+        work.shape[0], a["seqs"].shape[0], b["seqs"].shape[0], tm, tn,
+        n_chunks, n_planes, d, mode, 128, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.dense_match_error_string(err)
+    return out
+
+
+def _with_pad_rows(side, n, pad):
+    """side's rows followed by n pad rows (pad residues and their
+    planes, key -1, rep -1, count 0)."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    seqs = torch.full((n, side["seqs"].shape[1]), pad, dtype=torch.int8,
+                      device=side["seqs"].device)
+    tail = {"seqs": seqs,
+            "planes": K.residue_planes(seqs, side["planes"].shape[2]),
+            "key32": torch.full_like(side["key32"][:n], -1),
+            "rep": torch.full_like(side["rep"][:n], -1),
+            "cnt": torch.zeros_like(side["cnt"][:n])}
+    return {k: torch.cat([side[k], v]) for k, v in tail.items()}
+
+
+def test_dense_match_ragged_tiles_and_negative_starts(cuda):
+    """Tiles that run past the end of a row set (the kernel clips them),
+    overlapping tiles, pads-only tails and worklist rows with -1 starts
+    (skipped): the kernel equals the plain version on the row sets
+    extended by pad rows, over the rows with real starts."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _lpad_pair(24)
+    tm, tn = 64, 128
+    a, b, _ = _match_inputs(d1, d2, cuda, tm, tn)
+    na, nb = a["seqs"].shape[0], b["seqs"].shape[0]
+    starts = [(r, c) for r in range(0, na, 48) for c in range(0, nb, 80)]
+    skipped = [(-1, 0), (0, -1), (-1, -1), (na, 0), (0, nb)]
+    work = torch.tensor(starts + skipped, dtype=torch.int32, device=cuda)
+    real = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ea, eb = _with_pad_rows(a, tm, 20), _with_pad_rows(b, tn, 20)
+    for d, mode in ((0, 1), (2, 1), (2, 4), (3, 2)):
+        got = _raw_match(a, b, work, tm, tn, d, mode)
+        want = K.dense_match_plain(ea, eb, real, differences=d,
+                                   score_mode=mode, tile_m=tm, tile_n=tn,
+                                   r1p=8, r2p=128)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (d, mode)
+        assert (int(want.sum()) > 0) == (d > 0)
+    assert any(r + tm > na for r, _ in starts)
+    assert np.all(np.array(starts) >= 0)
+
+
+def test_dense_match_smem_and_launch_status(cuda, sets, monkeypatch):
+    """Shared memory fits a block at tile 768 for every C the tests use;
+    the C launch refuses more than 5 planes; the wrapper raises on a
+    non-zero launch status."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    lib = K.load_library("dense_match")
+    for n_chunks in (1, 2, 3, 4, 5):
+        for n_planes in (3, 5):
+            assert 0 < lib.dense_match_smem_bytes(
+                768, 768, n_chunks, n_planes) <= 232448
+    a, b, work = _inputs(sets, cuda, 128)
+    assert lib.dense_match_launch(
+        *[0] * 9, 1, 128, 128, 128, 128, 1, 6, 1, 1, 128, 0, 0) != 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def dense_match_launch(*args):
+            return 1
+
+    monkeypatch.setattr(K, "load_library", lambda name: Refusing())
+    with pytest.raises(RuntimeError):
+        K.dense_match(a, b, work, differences=1, score_mode=K.SC_PRODUCT,
+                      tile_m=128, tile_n=128, r1p=8, r2p=128)
+    torch.cuda.synchronize()
 
 
 def test_dense_match_rejects_cpu_worklist(cuda, sets):
