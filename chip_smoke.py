@@ -29,8 +29,8 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
   6. holds count_tiles and extract_tiles against their plain versions
      on every tile of the full-width worklists of phases 7 to 9 (all
      three tile classes; d = 1, 2, 3; exclude_self on and off), at tile
-     512, and on a nucleotide set with lpad 48: equal counts, and equal
-     record sets;
+     512, and on a nucleotide set with lpad 48: equal counts, equal
+     record sets, and no word index repeated;
   7. drives the tile route (ops.engine.find_pairs, -d 1 -i) over the
      1M x 1M workload with 0.5 % of set 1's rows planted into a copy of
      set 2 with one residue inserted or deleted: its pairs and distances
@@ -45,7 +45,9 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      equal dense_matrix's cell for cell;
  10. times both tile kernels with CUDA events at phase 7's shapes (count
      once per stream, extract once per slab, as find_pairs calls them),
-     their plain versions over the same tiles, their bounds, and
+     their plain versions over the same tiles, their bounds, their
+     design floors (tile_floor: C (P + 2) integer operations an
+     equal-key pair, 2 C (P + 2) a key-distance-1 pair), and
      find_pairs' wall split by phase;
  11. runs the CLI's tile route on phase 5's TSVs (-m/-x/-c -d 1 -i, a
      pairs file with --distance, -m -d 2 under COMPAIRR_PIGEONHOLE=0)
@@ -96,8 +98,10 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      COMPAIRR_ENGINE=dense COMPAIRR_V3=0 against the host route;
  19. times the tile route of find_pairs under -g (keys by length alone)
      on the 100k cut and the 1M x 1M sets, -d 1 -i and -d 2 under
-     COMPAIRR_PIGEONHOLE=0: find_pairs' wall, phases and launches,
-     count_tiles and extract_tiles (CUDA events) and their bounds;
+     COMPAIRR_PIGEONHOLE=0, and the 1M -d 1 -i run again at tile 512
+     (engine.BIG_TILE_ROWS moved below the sets' rows, as in phase 12):
+     find_pairs' wall, phases and launches, count_tiles and
+     extract_tiles (CUDA events), their bounds and design floors;
      timing only;
  20. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
@@ -161,12 +165,12 @@ LEN_LO, LEN_HI = 9, 22
 # op/s and device memory byte/s (NVIDIA's H100 SXM data sheet, at its
 # full 700 W power limit), by the name torch gives the card
 PEAKS = {"NVIDIA H100 80GB HBM3": (1979e12, 3.35e12)}
-# 32-bit integer lane operations a second on the CUDA cores, for
-# dense_match's design floor: 132 SMs x 64 a clock (LOP3, integer add
-# and compare; popcount at 16 a clock on its own pipe) x 1.98 GHz, the
-# H100 SXM's boost clock (NVIDIA's data sheet, and the arithmetic
-# instruction throughput table of the CUDA C++ documentation for compute
-# capability 9.0)
+# 32-bit integer lane operations a second on the CUDA cores, for the
+# design floors of dense_match and the tile kernels: 132 SMs x 64 a
+# clock (LOP3, integer add and compare; popcount at 16 a clock on its
+# own pipe) x 1.98 GHz, the H100 SXM's boost clock (NVIDIA's data sheet,
+# and the arithmetic instruction throughput table of the CUDA C++
+# documentation for compute capability 9.0)
 CORE_INT_OPS = {"NVIDIA H100 80GB HBM3": 132 * 64 * 1.98e9}
 
 
@@ -819,7 +823,8 @@ def tile_kw(p, cls, d=None, xself=None):
 def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
     """count_tiles and extract_tiles against their plain versions over
     every tile of every stream of p: (largest count difference, number
-    of records in one record set and not the other, tiles, matches).
+    of records in one record set and not the other plus the kernel's
+    repeated word indices, tiles, matches).
     ds: the distances the Hamming class is also run at."""
     import torch
 
@@ -841,14 +846,15 @@ def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
                 rec = (idx.astype(np.int64) << 32) | bits
                 prec = (pidx.astype(np.int64) << 32) | pbits
                 diff = len(np.setxor1d(rec, prec))
-                bad += diff
+                repeated = len(idx) - len(np.unique(idx))
+                bad += diff + repeated
                 tiles += len(work)
                 matched += total
                 print(f"  {label}: class {cls} d={kw['differences']} "
                       f"exclude_self={kw['exclude_self']}: {len(work)} "
                       f"tiles, {total} matches, equal counts "
                       f"{torch.equal(got, want)}, {len(rec)} records, "
-                      f"{diff} differ")
+                      f"{diff} differ, {repeated} repeated word indices")
     return worst, bad, tiles, matched
 
 
@@ -950,6 +956,23 @@ def tile_bound(p, groups, out_bytes, card_name, pairs=None):
         "ops_ms": ops_ms, "equal_key_pairs": eq_pairs,
         "key_distance_1_pairs": pm_pairs,
     }
+
+
+def tile_floor(p, bd, card_name):
+    """The tile kernels' design floor for the pairs that a tile_bound
+    result bd counted on p (tile_inputs'): C (P + 2) integer operations
+    for each equal-key pair of a Hamming-testing class (P LOP3 folding
+    the planes' XORs into the mismatch mask, one popcount, one compare,
+    each of the C chunks) and 2 C (P + 2) for each key-distance-1 pair
+    of an indel-testing class (the same fold on the forward and the
+    reversed planes, the lowest set bit in place of the popcount), over
+    the CUDA cores' integer rate, in ms."""
+    n_chunks, n_planes = p["a"]["planes"].shape[1:]
+    per_pair = n_chunks * (n_planes + 2)
+    ops = float(per_pair) * (bd["equal_key_pairs"]
+                             + 2 * bd["key_distance_1_pairs"])
+    return {"floor_ops": ops,
+            "floor_ms": ops / CORE_INT_OPS[card_name] * 1e3}
 
 
 def write_tsv(db, path):
@@ -1295,24 +1318,27 @@ def tile_route_timing(a, b, spec, label):
                     pairs=(eq, pm))
     eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
                     8 * words + 4 * len(slabs), name)
+    cf, ef = tile_floor(tp, cb, name), tile_floor(tp, eb, name)
     print(f"  {label}: route {route}, {len(got[0])} pairs, launches "
           f"{launches}, find_pairs {wall:.6f} s, by phase (s) {split}; "
           f"{tp['tiles']} worklist tiles of {tp['tile']} in streams "
           f"{[(len(w), c) for w, c in tp['streams']]}: count_tiles "
-          f"{count_ms:.4f} ms (bound {cb['bound_ms']:.6f} ms by "
-          f"{cb['bound_by']}; {cb['equal_key_pairs']} equal-key and "
+          f"{count_ms:.4f} ms (design floor {cf['floor_ms']:.6f} ms; bound "
+          f"{cb['bound_ms']:.6f} ms by {cb['bound_by']}; "
+          f"{cb['equal_key_pairs']} equal-key and "
           f"{cb['key_distance_1_pairs']} key-distance-1 pairs, "
           f"{cb['ops']:.4g} ops), {total} matches in {len(slabs)} slabs: "
-          f"extract_tiles {extract_ms:.4f} ms (bound {eb['bound_ms']:.6f} "
-          f"ms by {eb['bound_by']}) (CUDA events, 1 launch each after a "
-          f"warm one)")
+          f"extract_tiles {extract_ms:.4f} ms (design floor "
+          f"{ef['floor_ms']:.6f} ms; bound {eb['bound_ms']:.6f} ms by "
+          f"{eb['bound_by']}) (CUDA events, 1 launch each after a warm "
+          f"one)")
     return {"pairs": len(got[0]), "launches": launches, "find_pairs_s": wall,
             "find_pairs_phases_s": split, "tiles": tp["tiles"],
             "tile": tp["tile"],
             "streams": [(len(w), c) for w, c in tp["streams"]],
-            "count_ms": count_ms, "count_bound": cb, "matches": total,
-            "slabs": len(slabs), "extract_ms": extract_ms,
-            "extract_bound": eb}
+            "count_ms": count_ms, "count_bound": cb, "count_floor": cf,
+            "matches": total, "slabs": len(slabs), "extract_ms": extract_ms,
+            "extract_bound": eb, "extract_floor": ef}
 
 
 def main() -> int:
@@ -1637,14 +1663,16 @@ def main() -> int:
                         4 * sum(len(w) for w, _ in tp["streams"]), name)
         eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
                         8 * words + 4 * len(slabs), name)
+        cf, ef = tile_floor(tp, cb, name), tile_floor(tp, eb, name)
         _, wall, split = timed(
             lambda: E.find_pairs(d1, d2i, spec_i, device=DEVICE))
-        for label, ms, pms, bd in (("count_tiles", count_ms, count_plain_ms,
-                                    cb),
-                                   ("extract_tiles", extract_ms,
-                                    extract_plain_ms, eb)):
+        for label, ms, pms, bd, fl in (
+            ("count_tiles", count_ms, count_plain_ms, cb, cf),
+            ("extract_tiles", extract_ms, extract_plain_ms, eb, ef),
+        ):
             print(f"  {label}: {ms:.4f} ms a find_pairs call, plain "
-                  f"{pms:.1f} ms, bound {bd['bound_ms']:.6f} ms by "
+                  f"{pms:.1f} ms, design floor {fl['floor_ms']:.6f} ms, "
+                  f"bound {bd['bound_ms']:.6f} ms by "
                   f"{bd['bound_by']} ({bd['bytes']} bytes -> "
                   f"{bd['bytes_ms']:.6f} ms; {bd['equal_key_pairs']} "
                   f"equal-key and {bd['key_distance_1_pairs']} key-distance-1 "
@@ -1654,8 +1682,9 @@ def main() -> int:
             "tiles": tp["tiles"], "streams": [
                 (len(w), c) for w, c in tp["streams"]],
             "count_ms": count_ms, "count_plain_ms": count_plain_ms,
-            "count_bound": cb, "extract_ms": extract_ms,
+            "count_bound": cb, "count_floor": cf, "extract_ms": extract_ms,
             "extract_plain_ms": extract_plain_ms, "extract_bound": eb,
+            "extract_floor": ef,
             "slabs": len(slabs), "words": words, "matches": total,
             "find_pairs_s": wall, "find_pairs_phases_s": split,
         }
@@ -2020,6 +2049,12 @@ def main() -> int:
                 label = f"-g {tag}, {rows} rows a set"
                 with env(COMPAIRR_PIGEONHOLE=pigeonhole):
                     res[label] = tile_route_timing(a, b, spec, label)
+        # the same 1M run at tile 512: the worklist's size at the other tile
+        label = f"-g -d 1 -i, {N_ROWS} rows a set, tile 512"
+        with patched(E, "BIG_TILE_ROWS", 0):
+            res[label] = tile_route_timing(
+                d1, d2, E.MatchSpec(differences=1, indels=True,
+                                    ignore_genes=True), label)
         return res
 
     report["tiles_g"] = phase("19 tile route under -g (timing)", p19)

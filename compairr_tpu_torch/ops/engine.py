@@ -540,10 +540,11 @@ def _pair_plan(db1: SeqDB, db2: SeqDB, spec: MatchSpec, device_type: str):
 def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
                    lmax: int, dev, indels: bool):
     """Both sets' tile-route inputs: the key sort on the host
-    (pack_keys) and the rows derived on dev (kernels.device_rows_raw),
-    pad salt 0 for set 1 and 2 for set 2. The key rows take one width
-    for both sets, from the largest real key of either, so the kernels
-    always get two rows of one type. A self-comparison shares one
+    (pack_keys) and the rows derived on dev (kernels.device_rows_raw,
+    with the residue planes that the CUDA kernels read when dev is a
+    card), pad salt 0 for set 1 and 2 for set 2. The key rows take one
+    width for both sets, from the largest real key of either, so the
+    kernels always get two rows of one type. A self-comparison shares one
     derive, pad band and all. Returns a pair of (rows, orig int64[npad],
     key int64[npad]), one for each set."""
     from . import kernels as K
@@ -560,7 +561,8 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
 
     def side(db, order, key, npad, salt):
         rows = K.device_rows_raw(
-            db, order, npad, lmax, indels, key, salt, dev, wide=wide
+            db, order, npad, lmax, indels, key, salt, dev, wide=wide,
+            planes=dev.type == "cuda",
         )
         orig = np.full(npad, -1, dtype=np.int64)
         orig[: db.n] = order

@@ -10,9 +10,10 @@ engine and the sparse tile route run:
     the repertoire and count rows (device_args_raw, the dense engine's)
     or reverses the rows within their lengths and derives the key and
     original-index rows (device_rows_raw, the tile route's), and for
-    dense_match the residue bit planes (residue_planes: one int32 word
-    per 32 positions and residue bit). Torch ops, not kernels. No
-    one-hot rows are derived: the kernels read residues or planes.
+    dense_match and the tile kernels the residue bit planes
+    (residue_planes: one int32 word per 32 positions and residue bit).
+    Torch ops, not kernels. No one-hot rows are derived: the kernels
+    read residues or planes.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
     the JAX package's v3 / v2 / v2c / v1 ladder without the TPU's
     memory gates.
@@ -158,7 +159,8 @@ def _shrink(x: np.ndarray, sentinel: int, m: int) -> np.ndarray:
 
 
 PLANE_BITS = 32  # residue positions per plane word (one chunk)
-_PLANE_DERIVE_ELEMS = 1 << 23  # int64 bit temporaries per derive step
+_PLANE_DERIVE_ELEMS = 1 << 24  # int32 bit temporaries per derive step
+_SIGN_BIT = -(1 << 31)  # bit 31 of an int32 word
 
 
 def plane_chunks(lpad: int) -> int:
@@ -174,24 +176,25 @@ def residue_planes(seqs: torch.Tensor, n_planes: int) -> torch.Tensor:
     P = pad_value.bit_length() planes hold all of them (5 for amino
     acids, 3 for nucleotides), and two rows differ at a position exactly
     where some plane differs: popc(OR_q (A_q ^ B_q)) summed over the
-    chunks is their Hamming distance. The words are summed in int64 and
-    moved into int32's range, so bit 31 survives as the sign bit; rows
-    go in chunks, bounding the int64 temporaries at scale."""
+    chunks is their Hamming distance. Bits 0 to 30 of a word are summed
+    in int32 (below 2^31 in any order) and bit 31 is ORed in as the sign
+    bit; the bits come from the int8 residues, and rows go in chunks,
+    bounding the int32 temporaries at scale."""
     npad, lpad = seqs.shape
     c = plane_chunks(lpad)
     dev = seqs.device
     out = torch.empty((npad, c, n_planes), dtype=torch.int32, device=dev)
-    q = torch.arange(n_planes, device=dev).view(1, 1, n_planes, 1)
-    weight = 2 ** torch.arange(PLANE_BITS, dtype=torch.int64, device=dev)
+    q = torch.arange(n_planes, dtype=torch.int8, device=dev).view(
+        1, 1, n_planes, 1)
+    weight = 2 ** torch.arange(PLANE_BITS - 1, dtype=torch.int32, device=dev)
     step = max(1, _PLANE_DERIVE_ELEMS // (c * n_planes * PLANE_BITS))
     for s in range(0, npad, step):
-        x = seqs[s : s + step].to(torch.int64)
-        x = torch.nn.functional.pad(x, (0, c * PLANE_BITS - lpad))
+        x = torch.nn.functional.pad(seqs[s : s + step],
+                                    (0, c * PLANE_BITS - lpad))
         bits = (x.view(len(x), c, 1, PLANE_BITS) >> q) & 1
-        words = (bits * weight).sum(-1)
-        out[s : s + len(x)] = torch.where(
-            words >= 1 << 31, words - (1 << 32), words
-        ).to(torch.int32)
+        low = (bits[..., :-1] * weight).sum(-1, dtype=torch.int32)
+        out[s : s + len(x)] = torch.where(bits[..., -1] != 0,
+                                          low | _SIGN_BIT, low)
     return out
 
 
@@ -287,7 +290,7 @@ def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
 
 def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
                     indels: bool, sort_key: np.ndarray, pad_salt: int,
-                    device, *, wide: bool) -> dict:
+                    device, *, wide: bool, planes: bool = False) -> dict:
     """Upload a SeqDB's raw arrays (plus one all-pad sentinel row) and
     derive the key-sorted layouts the tile kernels read, on `device`
     (pallas_kernels.device_rows_raw with _gather_sparse_key_fn and
@@ -299,6 +302,11 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
       key    int32 [npad]        bucket key (JAX's key32 row); int64
                                  when wide (wide_keys of both sets)
       orig   int32 [npad]        original row index, pads -1
+      planes  int32 [npad, C, P] residue_planes of seqs, P =
+                                 pad_value.bit_length() (only with
+                                 planes: the tile kernels' rows)
+      rplanes int32 [npad, C, P] residue_planes of rseqs (only with
+                                 planes and indels)
 
     Pad keys are unique, 4 apart, in a band above every real key:
     2^29 + 2 + pad_salt + 4i (2^62 + ... for int64 rows). pad_salt is 0
@@ -331,12 +339,17 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
     if indels:
         lengths = (k & 0xFFFF).clamp(0, lpad)
         rseqs = _reversed_rows(seqs, lengths, pad_val)
-    return {
+    out = {
         "seqs": seqs,
         "rseqs": rseqs,
         "key": k,
         "orig": torch.where(o >= n, -1, o).to(torch.int32),
     }
+    if planes:
+        out["planes"] = residue_planes(seqs, pad_val.bit_length())
+        if indels:
+            out["rplanes"] = residue_planes(rseqs, pad_val.bit_length())
+    return out
 
 
 def upload_worklist(work: np.ndarray, device) -> torch.Tensor:
@@ -524,11 +537,12 @@ def _check_smem(name: str, smem: int, tile_n: int, lpad: int) -> None:
         )
 
 
-def _check_planes(side: dict, name: str, dev: torch.device) -> None:
-    """A side's residue planes (residue_planes of its seqs): contiguous
-    int32 [npad, plane_chunks(lpad), P] with 1 <= P <= 5, on dev, 16-byte
-    aligned on the card."""
-    seqs, pl = side["seqs"], side.get("planes")
+def _check_planes(side: dict, name: str, dev: torch.device,
+                  key: str = "planes") -> None:
+    """A side's residue planes (residue_planes of its seqs; rplanes, of
+    its rseqs): contiguous int32 [npad, plane_chunks(lpad), P] with
+    1 <= P <= 5, on dev, 16-byte aligned on the card."""
+    seqs, pl = side["seqs"], side.get(key)
     npad, lpad = seqs.shape
     if (
         pl is None
@@ -539,14 +553,14 @@ def _check_planes(side: dict, name: str, dev: torch.device) -> None:
         or not pl.is_contiguous()
     ):
         raise ValueError(
-            f"{name}['planes'] must be a contiguous int32 [{npad}, "
+            f"{name}[{key!r}] must be a contiguous int32 [{npad}, "
             f"{plane_chunks(lpad)}, P] tensor with 1 <= P <= 5 "
             "(residue_planes of the rows)"
         )
     if pl.device != dev:
-        raise ValueError(f"{name}['planes'] is on {pl.device}, expected {dev}")
+        raise ValueError(f"{name}[{key!r}] is on {pl.device}, expected {dev}")
     if dev.type == "cuda" and pl.data_ptr() % 16:
-        raise ValueError(f"{name}['planes'] is not 16-byte aligned")
+        raise ValueError(f"{name}[{key!r}] is not 16-byte aligned")
 
 
 def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
@@ -876,7 +890,10 @@ def _check_tiles(a: dict, b: dict, work: torch.Tensor, cls: int,
                  tile_m: int, tile_n: int) -> torch.device:
     """The device of a tile call, after its input checks: the rows'
     types, shapes and devices, the worklist's, and (on the device, with
-    no host sync) that every tile lies inside both row sets."""
+    no host sync) that every tile lies inside both row sets. The
+    kernels read the residue planes (and, on the indel classes, the
+    reversed rows' planes), which CUDA requires and the plain versions
+    ignore (they are checked where present)."""
     dev = a["seqs"].device
     _check_sparse_side(a, "a", dev, cls)
     _check_sparse_side(b, "b", dev, cls)
@@ -900,8 +917,17 @@ def _check_tiles(a: dict, b: dict, work: torch.Tensor, cls: int,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"tile kernels run on cuda or cpu tensors, not {dev}")
     _assert_tiles_inside(a, b, work, tile_m, tile_n, "tile_match")
-    if dev.type == "cuda" and lpad % 4:
-        raise ValueError(f"tile kernels need lpad % 4 == 0, got {lpad}")
+    if dev.type == "cuda" or "planes" in a or "planes" in b:
+        keys = ("planes",) if cls == CLS_HAMMING else ("planes", "rplanes")
+        for side, name in ((a, "a"), (b, "b")):
+            for key in keys:
+                _check_planes(side, name, dev, key)
+            if cls != CLS_HAMMING and (side["rplanes"].shape
+                                       != side["planes"].shape):
+                raise ValueError(
+                    f"{name}['rplanes'] must be shaped as {name}['planes']")
+        if a["planes"].shape[2] != b["planes"].shape[2]:
+            raise ValueError("a and b residue planes differ in number")
     return dev
 
 
@@ -921,29 +947,28 @@ def _assert_tiles_inside(a: dict, b: dict, work: torch.Tensor, tile_m: int,
 def _tile_args(a: dict, b: dict, work: torch.Tensor, cls: int, tile_m: int,
                tile_n: int, differences: int, exclude_self: bool):
     """The shared leading arguments of the two C launch functions (the
-    reversed rows only on the classes that read them)."""
+    reversed rows' planes only on the classes that read them)."""
     indels = cls != CLS_HAMMING
+    n_chunks, n_planes = a["planes"].shape[1:]
     return (
-        a["seqs"].data_ptr(), a["rseqs"].data_ptr() if indels else None,
+        a["planes"].data_ptr(), a["rplanes"].data_ptr() if indels else None,
         a["key"].data_ptr(), a["orig"].data_ptr(),
-        b["seqs"].data_ptr(), b["rseqs"].data_ptr() if indels else None,
+        b["planes"].data_ptr(), b["rplanes"].data_ptr() if indels else None,
         b["key"].data_ptr(), b["orig"].data_ptr(),
         work.data_ptr(), work.shape[0], a["seqs"].shape[0],
-        b["seqs"].shape[0], tile_m, tile_n, a["seqs"].shape[1],
-        differences, cls, int(exclude_self), a["key"].element_size(),
+        b["seqs"].shape[0], tile_m, tile_n, n_chunks, n_planes,
+        a["seqs"].shape[1], differences, cls, int(exclude_self),
+        a["key"].element_size(),
     )
 
 
-def _tile_library(a: dict, cls: int):
+def _tile_library(a: dict, cls: int, tile_m: int, tile_n: int):
     lib = load_library("tile_match")
-    smem = lib.tile_match_smem_bytes(
-        a["seqs"].shape[1], cls, a["key"].element_size()
-    )
-    if smem > 232448:
-        raise ValueError(
-            f"tile_match at lpad={a['seqs'].shape[1]} needs {smem} bytes "
-            "of shared memory a block, over the card's 232448"
-        )
+    n_chunks, n_planes = a["planes"].shape[1:]
+    _check_smem("tile_match",
+                lib.tile_match_smem_bytes(tile_m, tile_n, n_chunks, n_planes,
+                                          cls),
+                tile_n, a["seqs"].shape[1])
     return lib
 
 
@@ -960,9 +985,12 @@ def count_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
                 tile_n: int) -> torch.Tensor:
     """int32 [T] match counts of the worklist tiles (work: int32 [T, 2]
     element starts), on the rows' device, without a host sync. a/b are
-    device_rows_raw dicts; cls is the tile class (CLS_*). CUDA
-    tensors launch csrc/tile_match.cu; CPU tensors take
-    count_tiles_plain."""
+    device_rows_raw dicts, whose rows are key-sorted with pads last:
+    the kernel searches each a run's key window in the b tile, so it
+    needs that order, and it reads the residue planes (device_rows_raw
+    with planes), which CUDA requires; the plain version needs neither.
+    cls is the tile class (CLS_*). CUDA tensors launch
+    csrc/tile_match.cu; CPU tensors take count_tiles_plain."""
     dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
     kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
               tile_m=tile_m, tile_n=tile_n)
@@ -971,7 +999,7 @@ def count_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     out = torch.empty(work.shape[0], dtype=torch.int32, device=dev)
     if work.shape[0] == 0:
         return out
-    lib = _tile_library(a, cls)
+    lib = _tile_library(a, cls, tile_m, tile_n)
     with torch.cuda.device(dev):
         err = lib.count_tiles_launch(
             *_tile_args(a, b, work, cls, tile_m, tile_n, differences,
@@ -991,9 +1019,10 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     Bit i of a word is column 32*word + i of its row; word_idx =
     tile * tile_m * (tile_n/32) + row * (tile_n/32) + word, the JAX
     package's flat index. k is the capacity of the record buffer;
-    raises when the tiles hold more than k nonzero words. CUDA tensors
-    launch csrc/tile_match.cu, whose records come back in no fixed
-    order; CPU tensors take extract_tiles_plain (ascending word_idx)."""
+    raises when the tiles hold more than k nonzero words. The rows are
+    count_tiles'. CUDA tensors launch csrc/tile_match.cu, whose records
+    come back in no fixed order; CPU tensors take extract_tiles_plain
+    (ascending word_idx)."""
     dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
     if work.shape[0] * tile_m * (tile_n // 32) >= 1 << 31:
         raise ValueError("extract_tiles: word indices would overflow int32")
@@ -1007,7 +1036,7 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
         buf = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)
         buf[0] = 0
         if work.shape[0]:
-            lib = _tile_library(a, cls)
+            lib = _tile_library(a, cls, tile_m, tile_n)
             with torch.cuda.device(dev):
                 err = lib.extract_tiles_launch(
                     *_tile_args(a, b, work, cls, tile_m, tile_n,
@@ -1252,9 +1281,9 @@ _SIGNATURES = {
         "dense_general_error_string": ([_I], ctypes.c_char_p),
     },
     "tile_match": {
-        "count_tiles_launch": ([_P] * 9 + [_I] * 10 + [_P, _P], _I),
-        "extract_tiles_launch": ([_P] * 9 + [_I] * 11 + [_P] * 4, _I),
-        "tile_match_smem_bytes": ([_I, _I, _I], _I),
+        "count_tiles_launch": ([_P] * 9 + [_I] * 12 + [_P, _P], _I),
+        "extract_tiles_launch": ([_P] * 9 + [_I] * 13 + [_P] * 4, _I),
+        "tile_match_smem_bytes": ([_I] * 5, _I),
         "tile_match_error_string": ([_I], ctypes.c_char_p),
     },
 }

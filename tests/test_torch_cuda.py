@@ -177,7 +177,7 @@ def _planted_db(n, len_range, seed, nt=False, src=None, frac=0.2,
 
 def _planted_pair(lpad, v_offset=0):
     """Two planted sets whose rows pad to lpad (24: amino acids up to
-    23 long; 48: nucleotides up to 47 long)."""
+    23 long; above 32, nucleotides: 48 up to 47 long, and so on)."""
     nt = lpad > 32
     lr = (lpad - 8, lpad - 2)
     d1 = _planted_db(2000, lr, 41, nt, v_offset=v_offset)
@@ -200,23 +200,25 @@ def _concat(d1, d2):
                    longest=int(cat["lengths"].max()))
 
 
-def _tile_cases(d1, d2, dev, tile, self_cmp):
+def _tile_cases(d1, d2, dev, tile, self_cmp, by_vjl=True):
     """(rows a, rows b, [(worklist, class), ...]) of a -d 1 -i tile
-    run, as engine.find_pairs builds them, plus the Hamming class over
-    every equal-key tile and the both class over every tile. A
-    self-comparison compares the rows of both sets with themselves."""
+    run, as engine.find_pairs builds them (rows with their residue
+    planes), plus the Hamming class over every equal-key tile and the
+    both class over every tile. A self-comparison compares the rows of
+    both sets with themselves; by_vjl=False keys by length alone (-g)."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
     if self_cmp:
         d1 = d2 = _concat(d1, d2)
     lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
-    oa, ka, na = E.pack_keys(d1, tile, True)
-    ob, kb, nb = E.pack_keys(d2, tile, True)
+    oa, ka, na = E.pack_keys(d1, tile, by_vjl)
+    ob, kb, nb = E.pack_keys(d2, tile, by_vjl)
     wide = K.wide_keys(ka[: d1.n], kb[: d2.n])
-    a = K.device_rows_raw(d1, oa, na, lpad, True, ka, 0, dev, wide=wide)
+    a = K.device_rows_raw(d1, oa, na, lpad, True, ka, 0, dev, wide=wide,
+                          planes=True)
     b = a if self_cmp else K.device_rows_raw(d2, ob, nb, lpad, True, kb, 2,
-                                             dev, wide=wide)
+                                             dev, wide=wide, planes=True)
     work = E.worklist_from_keys(ka, d1.n, kb, d2.n, 1, tile, tile)
     has_eq, has_pm = E.classify_worklist(work, ka, d1.n, kb, d2.n, tile,
                                          tile)
@@ -251,6 +253,7 @@ def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
             idx, bits, count = K.extract_tiles(a, b, wd, k=max(total, 1),
                                                **kw)
             pidx, pbits = K.extract_tiles_plain(a, b, wd, **kw)
+            assert len(np.unique(idx)) == len(idx), "a word came twice"
             o = np.argsort(idx)
             np.testing.assert_array_equal(idx[o], pidx)
             np.testing.assert_array_equal(bits[o], pbits)
@@ -261,15 +264,78 @@ def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
     assert matched > 0
 
 
-@pytest.mark.parametrize("lpad", [24, 48])
+def _straddles(key, n, tile):
+    """Whether some run of equal keys among the first n sorted keys
+    crosses both a 32-row word edge and a tile edge."""
+    import numpy as np
+
+    edges = np.flatnonzero(np.diff(key[:n])) + 1
+    starts = np.concatenate([[0], edges])
+    ends = np.concatenate([edges, [n]])
+    word = (starts // 32) != ((ends - 1) // 32)
+    tiles = (starts // tile) != ((ends - 1) // tile)
+    return bool(word.any() and tiles.any())
+
+
+@pytest.mark.parametrize("lpad", [24, 48, 136, 200])
 @pytest.mark.parametrize("tile", [128, 512])
 def test_tile_kernels_equal_plain(cuda, tile, lpad):
+    """C = 1, 2, 5, 7 (lpad 136 and 200 take the runtime-C loop; at
+    tile 512, lpad 200's b planes are staged in two column chunks), 5
+    planes at lpad 24 and 3 (nucleotides) above; sets of 2,000 and
+    2,500 rows, so the last tile of each is ragged (pads after the real
+    rows); key runs of about 70 rows that cross word and tile edges; d 1
+    to 3; two sets with exclude_self off and on, and a self-comparison."""
     d1, d2 = _planted_pair(lpad)
     for self_cmp, xself in ((False, False), (False, True), (True, True)):
         a, b, streams = _tile_cases(d1, d2, cuda, tile, self_cmp)
         assert a["seqs"].shape[1] == lpad
+        assert a["planes"].shape[1:] == (-(-lpad // 32),
+                                         5 if lpad < 32 else 3)
+        key = a["key"].cpu().numpy()
+        assert _straddles(key, int((a["orig"] >= 0).sum()), tile)
         _check_tiles_equal_plain(a, b, streams, cuda, tile, xself,
                                  ds=(1, 2, 3))
+
+
+@pytest.mark.parametrize("tile", [128, 512])
+def test_tile_kernels_single_key_tiles(cuda, tile):
+    """-g: keys by length alone, so most tiles hold one or two keys and
+    every a run's window spans whole tiles."""
+    d1, d2 = _planted_pair(24)
+    for self_cmp, xself in ((False, False), (True, True)):
+        a, b, streams = _tile_cases(d1, d2, cuda, tile, self_cmp,
+                                    by_vjl=False)
+        _check_tiles_equal_plain(a, b, streams, cuda, tile, xself,
+                                 ds=(1, 2, 3))
+
+
+def test_tile_kernels_require_planes(cuda):
+    """On the card the tile kernels read only planes: a side without
+    them (or without the reversed rows' planes on an indel class)
+    raises, with no fallback to the residue rows."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    a, b, streams = _tile_cases(d1, d2, cuda, 128, False)
+    work, cls = next((w, c) for w, c in streams if c == K.CLS_BOTH)
+    wd = K.upload_worklist(work, cuda)
+    kw = dict(differences=1, cls=cls, exclude_self=False, tile_m=128,
+              tile_n=128)
+    def bare(side):
+        return {k: v for k, v in side.items()
+                if k not in ("planes", "rplanes")}
+
+    before = dict(K.LAUNCHES)
+    for strip in (bare, lambda side: dict(side, rplanes=None)):
+        with pytest.raises(ValueError, match="planes"):
+            K.count_tiles(strip(a), b, wd, **kw)
+        with pytest.raises(ValueError, match="planes"):
+            K.extract_tiles(a, strip(b), wd, k=1 << 12, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before
 
 
 def test_tile_kernels_big_keys_equal_plain(cuda):
