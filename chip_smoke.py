@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (compairr_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 17,20   # phases 1, 2 and these alone
 
 Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
 
@@ -59,14 +60,17 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      against 512-row ones at 1M and 4M rows a set (engine.BIG_TILE_ROWS),
      and the CLI's -m -d 1 -i at 1M rows with and without the
      find_pairs prefetch; each pair of alternatives must agree;
- 13. holds dense_indel and dense_general against their plain versions
-     on every full-width tile: the indel workload's dense worklist
-     (-d 1 -i, keys k-1..k+1; dense_indel in product and mean,
+ 13. holds dense_indel and dense_general (both on residue bit planes,
+     and reversed rows' planes on indel runs) against their plain
+     versions on every full-width tile: the indel workload's dense
+     worklist (-d 1 -i, keys k-1..k+1; dense_indel in product and mean,
      dense_general in min and max, since its counts pass 64), the kernel
      workload at d=2 and tile 768 under min (= Jaccard), max and ratio
-     (float64: the largest relative difference), and 200,000-row sets
-     with bucket keys >= 2^31, with counts >= 2^16 and with counts
-     whose products pass int64 (float64 sums); integer sums torch.equal;
+     (float64: the largest relative difference), 200,000-row sets with
+     bucket keys >= 2^31, with counts >= 2^16 and with counts whose
+     products pass int64 (float64 sums), and the -g cut of 100,000 rows
+     a set with 1 % near-duplicates planted (-d 1 -i at tile 128 on both
+     kernels, -d 2 min and ratio at 768); integer sums torch.equal;
  14. drives dense_matrix -d 1 -i over the indel workload with product
      (dense_indel) and min (dense_general): each matrix must equal, cell
      for cell, the matrix of the tile route's pairs (phase 7's 14,951)
@@ -79,8 +83,13 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      min (dense_general), each byte-equal to the host route and
      launching its kernel;
  17. times dense_indel (phase 14's product run) and dense_general (phase
-     15's min run) with CUDA events, their plain versions, their bounds,
-     and dense_matrix's wall on the same data;
+     15's min run) with CUDA events, their plain versions, their bounds
+     and design floors (tile_floor over dense_bound's pairs), and
+     dense_matrix's wall on the same data; the indel workload's derive
+     with and without the residue planes, in turns; and both kernels
+     under -g at 1M x 1M (dense_indel -d 1 -i at tiles 128 and 768,
+     dense_general -d 2 min at 128 and 768 and ratio at 768), timing
+     only, with bound, floor, and the plain version on the -g cut;
  18. dense onehot: holds dense_onehot against its plain version (and
      dense_match) on every full-width tile of the kernel workload
      (product, -f; min and max with counts clamped to 64), the CLI
@@ -97,18 +106,27 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      same depth as a rate yardstick; and runs the CLI's -m -d 2 under
      COMPAIRR_ENGINE=dense COMPAIRR_V3=0 against the host route;
  19. times the tile route of find_pairs under -g (keys by length alone)
-     on the 100k cut and the 1M x 1M sets, -d 1 -i and -d 2 under
+     on the indel workload's sets (phase 7's), their 100k cut and the 1M
+     x 1M sets, -d 1 -i and -d 2 under
      COMPAIRR_PIGEONHOLE=0, and the 1M -d 1 -i run again at tile 512
      (engine.BIG_TILE_ROWS moved below the sets' rows, as in phase 12):
      find_pairs' wall, phases and launches, count_tiles and
      extract_tiles (CUDA events), their bounds and design floors;
-     timing only;
- 20. prints the card line, one JSON line listing every kernel, and as
+     timing only, keeping the 1M runs' pairs;
+ 20. drives dense_matrix under -g over phase 19's 1M x 1M sets, -d 1 -i
+     product (dense_indel) and -d 2 min (dense_general): each matrix
+     must equal, cell for cell, the matrix of phase 19's tile-route
+     pairs of the same run (indel pairs among the -d 1 -i ones), and
+     launch its kernel once;
+ 21. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
 any phase fails. Writes every measurement to
-chiprun_out/chip_smoke.json as well.
+chiprun_out/chip_smoke.json as well. With --phases it runs phases 1, 2
+and the ones named (each falls back on its own inputs where an earlier
+phase would have made them) and prints no kernels line: it times a
+parent tree's kernels beside this one's, from a copy of this file.
 """
 
 from __future__ import annotations
@@ -157,6 +175,8 @@ RATIO_RTOL = 1e-12  # float64 sums, added in no fixed order
 # side of the torch._int_mm yardstick (a 4 GiB int32 product)
 G_ROWS = 100_000
 INT_MM_SIDE_MAX = 32768
+# phase 17: launches timed a -g 1M run of dense_indel or dense_general
+G_JOIN_REPS = 2
 
 AA_LEN_MEAN, AA_LEN_STD = 14.5, 1.8
 LEN_LO, LEN_HI = 9, 22
@@ -336,6 +356,32 @@ def cuda_ms(fn, reps, warm=2):
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_ms(fn, kernel, reps=10, warm=2):
+    """Mean device milliseconds a call of fn() spends in the CUDA kernels
+    whose name holds `kernel` (the kernel alone, without the wrapper's
+    checks and allocations or the host's gaps between launches), from
+    torch.profiler's CUDA activity over reps calls after warm ones; None
+    when the profiler records no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def parse_timing(text):
     """[(report, {phase: seconds})] of the `[timing]` lines that the
     port's phase timer (COMPAIRR_TIMING=1) printed into text."""
@@ -407,9 +453,11 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
             wide=False, by_vjl=True):
     """A dense kernel's inputs on dev, as engine.dense_matrix builds
     them: both sets' derived rows (reversed rows with indels; int64 key
-    and count rows when wide, for dense_general; residue planes
-    otherwise, for dense_match) and the column-major worklist over keys
-    k-delta..k+delta; by_vjl=False keys the rows by length alone (-g)."""
+    and count rows when wide, for dense_general) with the residue planes
+    that the CUDA kernels but dense_onehot read (and, with indels, the
+    reversed rows' planes), the int8 rows kept for the plain versions,
+    and the column-major worklist over keys k-delta..k+delta;
+    by_vjl=False keys the rows by length alone (-g)."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
@@ -419,7 +467,7 @@ def prepare(d1, d2, dev, tile=TILE, differences=DIFFERENCES, indels=False,
     work = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     )
-    rows = dict(indels=indels, wide=wide, planes=not (indels or wide))
+    rows = dict(indels=indels, wide=wide, planes=True)
     return {
         "a": K.device_args_raw(d1, oa, na, lpad, ka, dev, **rows),
         "b": K.device_args_raw(d2, ob, nb, lpad, kb, dev, **rows),
@@ -569,9 +617,9 @@ def dense_bound(p, card_name):
     operations over the int8 peak. Bytes: each row a worklist tile
     covers read once (residues, reversed residues on indel runs, key,
     repertoire and count; the pad rows past the last tile are never
-    read; residues counted as int8 rows, dense_match's bit planes being
-    the same input in another layout), the worklist read once, the
-    matrix written once. Operations:
+    read; residues counted as int8 rows, the bit planes being the same
+    input in another layout), the worklist read once, the matrix written
+    once. Operations:
     what this data needs, one compare and one add per residue of every
     equal-key pair and, on indel runs, two (prefix and suffix) per
     residue of every pair with keys 1 apart (the other pairs of the
@@ -580,11 +628,12 @@ def dense_bound(p, card_name):
         raise ValueError(f"no published peaks for {card_name!r}")
     peak_ops, peak_bw = PEAKS[card_name]
     n_bytes = p["work"].nbytes + p["r1p"] * p["r2p"] * 8
+    key, cnt = ("key64", "cnt64") if p["wide"] else ("key32", "cnt")
     for side, col in ((p["a"], 0), (p["b"], 1)):
-        row_bytes = sum(t[0].numel() * t.element_size()
-                        for k, t in side.items() if k != "planes")
+        row_bytes = p["lpad"] * (2 if p["indels"] else 1) + sum(
+            side[k].element_size() for k in (key, "rep", cnt))
         n_bytes += row_bytes * touched_rows(
-            p["work"][:, col], p["tile"], side["seqs"].shape[0]
+            p["work"][:, col], p["tile"], side["rep"].shape[0]
         )
     ka, kb = p["keys"]
     eq = equal_key_pairs(ka, kb)
@@ -959,14 +1008,15 @@ def tile_bound(p, groups, out_bytes, card_name, pairs=None):
 
 
 def tile_floor(p, bd, card_name):
-    """The tile kernels' design floor for the pairs that a tile_bound
-    result bd counted on p (tile_inputs'): C (P + 2) integer operations
-    for each equal-key pair of a Hamming-testing class (P LOP3 folding
-    the planes' XORs into the mismatch mask, one popcount, one compare,
-    each of the C chunks) and 2 C (P + 2) for each key-distance-1 pair
-    of an indel-testing class (the same fold on the forward and the
-    reversed planes, the lowest set bit in place of the popcount), over
-    the CUDA cores' integer rate, in ms."""
+    """The design floor of the tile kernels and of dense_indel and
+    dense_general for the pairs that a tile_bound or dense_bound result
+    bd counted on p (tile_inputs' or prepare's): C (P + 2) integer
+    operations for each equal-key pair that takes the Hamming test (P
+    LOP3 folding the planes' XORs into the mismatch mask, one popcount,
+    one compare, each of the C chunks) and 2 C (P + 2) for each
+    key-distance-1 pair that takes the indel test (the same fold on the
+    forward and the reversed planes, the lowest set bit in place of the
+    popcount), over the CUDA cores' integer rate, in ms."""
     n_chunks, n_planes = p["a"]["planes"].shape[1:]
     per_pair = n_chunks * (n_planes + 2)
     ops = float(per_pair) * (bd["equal_key_pairs"]
@@ -1263,7 +1313,8 @@ def phase_prefetch(workdir, a, b):
 
 def tile_route_timing(a, b, spec, label):
     """Timing only, no plain version: find_pairs on the card (its wall,
-    phase split and launches, every count set to 0 just before), then
+    phase split, launches and pairs (i1, i2), every count set to 0 just
+    before), then
     count_tiles over each worklist stream and extract_tiles over each
     slab of the nonzero tiles, once each after one warm call (CUDA
     events), with their bounds. The count's bound takes the pair counts
@@ -1338,12 +1389,18 @@ def tile_route_timing(a, b, spec, label):
             "streams": [(len(w), c) for w, c in tp["streams"]],
             "count_ms": count_ms, "count_bound": cb, "count_floor": cf,
             "matches": total, "slabs": len(slabs), "extract_ms": extract_ms,
-            "extract_bound": eb, "extract_floor": ef}
+            "extract_bound": eb, "extract_floor": ef}, got[:2]
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    only = None  # --phases N,M: phases 1, 2 and these alone
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            print("usage: chip_smoke.py [--phases N[,N...]]", file=sys.stderr)
+            return 2
+        only = {"1", "2", *argv[1].split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
@@ -1354,6 +1411,8 @@ def main() -> int:
     failed = []
 
     def phase(name, fn):
+        if only is not None and name.split()[0] not in only:
+            return None
         t0 = time.perf_counter()
         print(f"== {name}", flush=True)
         try:
@@ -1441,6 +1500,8 @@ def main() -> int:
             raise AssertionError("dense matrix differs from the host route")
 
         ms = cuda_ms(lambda: run_kernel(p, K.SC_PRODUCT), reps=20)
+        dev_ms = kernel_ms(lambda: run_kernel(p, K.SC_PRODUCT),
+                           "dense_match_kernel")
         k = run_kernel(p, K.SC_PRODUCT)
         t0 = time.perf_counter()
         ref = run_plain(p, K.SC_PRODUCT)
@@ -1451,14 +1512,16 @@ def main() -> int:
         tiles = len(p["work"])
         res = {
             "matrix_sum": total, "launches": launches["dense_match"],
-            "end_to_end_s": wall, "ms": ms, "plain_ms": plain_ms,
-            "full_width_max_abs_err": err, "tiles": tiles,
+            "end_to_end_s": wall, "ms": ms, "kernel_ms": dev_ms,
+            "plain_ms": plain_ms, "full_width_max_abs_err": err,
+            "tiles": tiles,
             "visited_pairs_per_s": tiles * TILE * TILE / (ms * 1e-3),
             "pairs_per_s": float(N_ROWS) * N_ROWS / (ms * 1e-3),
             **b,
         }
-        print(f"  kernel {ms:.4f} ms a launch (CUDA events, 20 launches), "
-              f"plain {plain_ms:.1f} ms, kernel vs plain max abs err {err}")
+        print(f"  kernel {ms:.4f} ms a launch (CUDA events, 20 launches; "
+              f"the kernel alone {fmt_ms(dev_ms)}, torch.profiler), plain "
+              f"{plain_ms:.1f} ms, kernel vs plain max abs err {err}")
         print(f"  visited pairs/s {res['visited_pairs_per_s']:.4g}, "
               f"pairs/s {res['pairs_per_s']:.4g}")
         print(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
@@ -1499,6 +1562,16 @@ def main() -> int:
                           ignore_genes=False)
     print(f"tile data: {time.perf_counter() - t0:.1f} s to plant")
     kept = {}
+    # the tile route's -g runs (phase 19) and the pairs of their 1M runs,
+    # which phase 20 holds dense_indel and dense_general to
+    G_TILE_RUNS = {
+        "-d 1 -i": (E.MatchSpec(differences=1, indels=True,
+                                ignore_genes=True), None),
+        "-d 2, COMPAIRR_PIGEONHOLE=0": (
+            E.MatchSpec(differences=DIFFERENCES, indels=False,
+                        ignore_genes=True), "0"),
+    }
+    g_pairs = {}
 
     def p6():
         cases = [
@@ -1711,15 +1784,22 @@ def main() -> int:
     report["routing"] = phase("12 routing choices A/B", p12)
 
     # the dense engine's other two kernels: the indel workload at the
-    # engine's default tile (128) and the kernel workload at tile 768
+    # engine's default tile (128), the kernel workload at tile 768 and
+    # the -g cut
     joins = {}
+    g_cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2)]
+    # the cut with 1 % near-duplicates of its set 1 rows planted into its
+    # set 2 (substitutions and indels), for phase 13's -g checks
+    g_planted = [g_cut[0], with_planted(*g_cut, 0.01, SIDE_SEED, (0, 1, 2))]
 
     def p13():
         s1, s2 = side_sets(d1, d2)
         w1, w2 = wide_keys(s1), wide_keys(s2)
         pl = [(K.SC_MIN, "min (= Jaccard)"), (K.SC_MAX, "max")]
-        def rows(a, b, indels, wide=True, tile=E.TILE_M):
-            return prepare(a, b, dev, tile, indels=indels, wide=wide)
+
+        def rows(a, b, indels, wide=True, tile=E.TILE_M, by_vjl=True):
+            return prepare(a, b, dev, tile, indels=indels, wide=wide,
+                           by_vjl=by_vjl)
 
         joins["indel"] = rows(d1, d2i, True, wide=False)
         joins["general"] = rows(d1, d2, False, tile=TILE)
@@ -1742,6 +1822,17 @@ def main() -> int:
              [("dense_general product", K.SC_PRODUCT, 1, False)]),
             ("counts x 2^32 (float64 sums)", rows(*huge, True),
              [("dense_general product", K.SC_PRODUCT, 1, True)]),
+            (f"-g, {G_ROWS} rows a set, -d 1 -i",
+             rows(*g_planted, True, wide=False, by_vjl=False),
+             [("dense_indel product", K.SC_PRODUCT, 1, False),
+              ("dense_indel mean", K.SC_SUM, 1, False)]),
+            (f"-g, {G_ROWS} rows a set, -d 1 -i, wide rows",
+             rows(*g_planted, True, by_vjl=False),
+             [("dense_general min", K.SC_MIN, 1, False)]),
+            (f"-g, {G_ROWS} rows a set, -d 2, tile 768",
+             rows(*g_planted, False, tile=TILE, by_vjl=False),
+             [("dense_general min", K.SC_MIN, DIFFERENCES, False),
+              ("dense_general ratio", K.SC_RATIO, DIFFERENCES, True)]),
         ]
         res = {"cases": {}, "indel_max_abs_err": 0.0,
                "general_max_abs_err": 0.0, "ratio_max_rel_err": 0.0}
@@ -1853,6 +1944,8 @@ def main() -> int:
                       if kernel == "dense_indel"
                       else prepare(d1, d2, dev, TILE, wide=True))
             ms = cuda_ms(lambda: run_join(jp, mode, d), reps=20)
+            dev_ms = kernel_ms(lambda: run_join(jp, mode, d),
+                               "dense_join_kernel")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run_join(jp, mode, d, plain=True)
@@ -1861,18 +1954,111 @@ def main() -> int:
             walls = [dense_run(a, b, spec, score_int, kernel, tile)[1]
                      for _ in range(3)]
             bd = dense_bound(jp, name)
-            res[kernel] = {"ms": ms, "plain_ms": plain_ms,
+            fl = tile_floor(jp, bd, name)
+            res[kernel] = {"ms": ms, "kernel_ms": dev_ms,
+                           "plain_ms": plain_ms,
                            "tiles": len(jp["work"]), "tile": jp["tile"],
-                           "dense_matrix_wall_s": walls, **bd}
+                           "dense_matrix_wall_s": walls, **bd,
+                           "floor": fl}
             print(f"  {kernel}: {ms:.4f} ms a launch (CUDA events, 20 "
-                  f"launches), {len(jp['work'])} tiles of {jp['tile']}, "
-                  f"plain {plain_ms:.1f} ms; bound {bd['bound_ms']:.6f} ms "
+                  f"launches; the kernel alone {fmt_ms(dev_ms)}, "
+                  "torch.profiler), "
+                  f"{len(jp['work'])} tiles of {jp['tile']}, "
+                  f"plain {plain_ms:.1f} ms; design floor "
+                  f"{fl['floor_ms']:.6f} ms; bound {bd['bound_ms']:.6f} ms "
                   f"by {bd['bound_by']} ({bd['bytes']} bytes -> "
                   f"{bd['bytes_ms']:.6f} ms; {bd['equal_key_pairs']} "
                   f"equal-key and {bd['key_distance_1_pairs']} "
                   f"key-distance-1 pairs, {bd['ops']:.4g} ops -> "
                   f"{bd['ops_ms']:.6f} ms); dense_matrix walls (s) {walls}")
+        res["derive"] = derive_timing(d1, d2i)
+        res["-g"] = g_join_timing(g_cut)
         return res
+
+    def derive_timing(a, b):
+        """The indel workload's derive as dense_matrix runs it for
+        dense_indel, both sets: device_args_raw without planes (the int8
+        rows alone) and with them (planes and rplanes besides), in
+        AB_ORDER twice after one warm call each: seconds, the card
+        synchronised before and after."""
+        lpad = E._round_up(int(max(a.longest, b.longest)), 8)
+        packed = [E.pack_keys(x, E.TILE_M, True) for x in (a, b)]
+
+        def derive(planes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, (o, k, n) in zip((a, b), packed):
+                K.device_args_raw(x, o, n, lpad, k, dev, indels=True,
+                                  planes=planes)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        derive(True)
+        derive(False)
+        walls = {"planes": [], "rows only": []}
+        for planes in AB_ORDER * 2:
+            walls["planes" if planes else "rows only"].append(derive(planes))
+        print(f"  derive of the indel workload's two sets (device_args_raw, "
+              f"indels, {a.n} + {b.n} rows): walls (s) {walls}; planes add "
+              f"{np.mean(walls['planes']) - np.mean(walls['rows only']):.6f}"
+              " s on average")
+        return walls
+
+    def g_join_timing(cut):
+        """dense_indel and dense_general under -g at 1M x 1M rows a set
+        (keys by length alone), timing only (CUDA events, G_JOIN_REPS
+        launches after a warm one): -d 1 -i product at tiles 128 and 768,
+        -d 2 min at 128 and 768, -d 2 ratio (float64) at 768; with the
+        bound and design floor of each, and the plain version (and the
+        kernel) on the same run over the -g cut."""
+        runs = (
+            ("dense_indel", E.TILE_M, "-d 1 -i product", K.SC_PRODUCT, 1,
+             False),
+            ("dense_indel", TILE, "-d 1 -i product", K.SC_PRODUCT, 1, False),
+            ("dense_general", E.TILE_M, "-d 2 min", K.SC_MIN, DIFFERENCES,
+             False),
+            ("dense_general", TILE, "-d 2 min", K.SC_MIN, DIFFERENCES,
+             False),
+            ("dense_general", TILE, "-d 2 ratio", K.SC_RATIO, DIFFERENCES,
+             True),
+        )
+        out = {}
+        q = None
+        for kernel, tile, what, mode, d, fo in runs:
+            kw = dict(indels=kernel == "dense_indel",
+                      wide=kernel == "dense_general", by_vjl=False)
+            if q is None or (q["tile"], q["indels"], q["wide"]) != (
+                    tile, kw["indels"], kw["wide"]):
+                q = None
+                q = prepare(d1, d2, dev, tile, d, **kw)
+            ms = cuda_ms(lambda: run_join(q, mode, d, fo), reps=G_JOIN_REPS,
+                         warm=1)
+            bd = dense_bound(q, name)
+            fl = tile_floor(q, bd, name)
+            qc = prepare(*cut, dev, tile, d, **kw)
+            cut_ms = cuda_ms(lambda: run_join(qc, mode, d, fo), reps=1,
+                             warm=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_join(qc, mode, d, fo, plain=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            del qc
+            label = f"-g {what}, tile {tile}"
+            out[label] = {"kernel": kernel, "tiles": len(q["work"]),
+                          "tile": tile, "ms": ms, "cut_ms": cut_ms,
+                          "cut_plain_ms": plain_ms, **bd, "floor": fl}
+            print(f"  {kernel} {label}, {N_ROWS} rows a set: "
+                  f"{len(q['work'])} tiles, {ms:.4f} ms a launch (CUDA "
+                  f"events, {G_JOIN_REPS} launches after a warm one); design "
+                  f"floor {fl['floor_ms']:.6f} ms; bound "
+                  f"{bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+                  f"({bd['equal_key_pairs']} equal-key and "
+                  f"{bd['key_distance_1_pairs']} key-distance-1 pairs, "
+                  f"{bd['ops']:.4g} ops -> {bd['ops_ms']:.6f} ms); the "
+                  f"{G_ROWS}-row cut: kernel {cut_ms:.4f} ms, plain "
+                  f"{plain_ms:.1f} ms")
+        return out
 
     report["join_timing"] = phase("17 dense indel/general timing", p17)
 
@@ -1883,7 +2069,6 @@ def main() -> int:
         # (a) the kernel against its plain version on every tile
         both = [("product", K.SC_PRODUCT), ("-f", K.SC_ONE)]
         c64 = [with_counts(x, lambda c: np.minimum(c, 64)) for x in (d1, d2)]
-        g_cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2)]
         worst = 0
         for label, mk, modes in (
             ("kernel workload", lambda: p, both),
@@ -2037,27 +2222,61 @@ def main() -> int:
 
     def p19():
         res = {}
-        g_cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2)]
-        for rows, (a, b) in ((G_ROWS, g_cut), (N_ROWS, (d1, d2))):
-            for tag, spec, pigeonhole in (
-                ("-d 1 -i", E.MatchSpec(differences=1, indels=True,
-                                        ignore_genes=True), None),
-                ("-d 2, COMPAIRR_PIGEONHOLE=0",
-                 E.MatchSpec(differences=DIFFERENCES, indels=False,
-                             ignore_genes=True), "0"),
-            ):
+        cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2i)]
+        for rows, (a, b) in ((G_ROWS, cut), (N_ROWS, (d1, d2i))):
+            for tag, (spec, pigeonhole) in G_TILE_RUNS.items():
                 label = f"-g {tag}, {rows} rows a set"
                 with env(COMPAIRR_PIGEONHOLE=pigeonhole):
-                    res[label] = tile_route_timing(a, b, spec, label)
+                    res[label], pairs = tile_route_timing(a, b, spec, label)
+                if rows == N_ROWS:
+                    g_pairs[tag] = pairs
         # the same 1M run at tile 512: the worklist's size at the other tile
         label = f"-g -d 1 -i, {N_ROWS} rows a set, tile 512"
         with patched(E, "BIG_TILE_ROWS", 0):
-            res[label] = tile_route_timing(
-                d1, d2, E.MatchSpec(differences=1, indels=True,
-                                    ignore_genes=True), label)
+            res[label], _ = tile_route_timing(
+                d1, d2i, G_TILE_RUNS["-d 1 -i"][0], label)
         return res
 
     report["tiles_g"] = phase("19 tile route under -g (timing)", p19)
+
+    def p20():
+        from compairr_tpu_torch.constants import SCORE_MIN
+
+        res = {}
+        for tag, score, score_int, kernel in (
+            ("-d 1 -i", "product", SCORE_PRODUCT, "dense_indel"),
+            ("-d 2, COMPAIRR_PIGEONHOLE=0", "min", SCORE_MIN,
+             "dense_general"),
+        ):
+            spec, pigeonhole = G_TILE_RUNS[tag]
+            pairs = g_pairs.get(tag)
+            if pairs is None:  # phase 19 did not run: the tile route now
+                with env(COMPAIRR_PIGEONHOLE=pigeonhole):
+                    pairs = E.find_pairs(d1, d2i, spec, device=DEVICE,
+                                         want_dist=False)[:2]
+                if E.LAST_ROUTE != "tiles":
+                    raise AssertionError(f"-g {tag}: route {E.LAST_ROUTE}")
+            m, wall, launches = dense_run(d1, d2i, spec, score_int, kernel)
+            want = pairs_matrix(d1, d2i, pairs, score_int)
+            same = np.array_equal(m, want)
+            indel = int((d1.lengths[pairs[0]] != d2i.lengths[pairs[1]]).sum())
+            print(f"  -g {tag.split(',')[0]}, {score}, {N_ROWS} rows a set: "
+                  f"{kernel}, matrix sum {m.sum():.0f}, the tile route's "
+                  f"{len(pairs[0])} pairs ({indel} indel pairs) sum "
+                  f"{want.sum():.0f}, equal cell for cell: {same}; "
+                  f"dense_matrix {wall:.6f} s end to end")
+            if not same or want.sum() == 0:
+                raise AssertionError(f"-g {tag} {kernel}: matrix differs from "
+                                     "the tile route's pairs")
+            if spec.indels and indel == 0:
+                raise AssertionError(f"-g {tag}: no indel pair compared")
+            res[tag] = {"kernel": kernel, "pairs": len(pairs[0]),
+                        "indel_pairs": indel, "matrix_sum": float(m.sum()),
+                        "wall_s": wall, "launches": launches[kernel]}
+        return res
+
+    report["join_g"] = phase("20 dense indel/general under -g vs tile route",
+                             p20)
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
@@ -2070,6 +2289,11 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: FAILED phases: {failed}", file=sys.stderr)
         return 1
+    if only is not None:
+        print(card)
+        print(f"chip_smoke: phases {sorted(only, key=int)} passed; the "
+              "kernels line needs every phase")
+        return 0
     fw = report["full_width"]
     tv, kv = report["tile_timing"], report["tile_kernels_vs_plain"]
     tl = report["tiles_full_width"]["launches"]
@@ -2152,4 +2376,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -451,13 +451,22 @@ def dense_matrix(
         indels=use_indels, score_int=score_int,
         ignore_counts=ignore_counts, cmax=cmax, key_max=kmax,
     )
+    # the CUDA dense_indel and dense_general read only residue planes:
+    # their int8 rows are dropped once the planes are derived
+    planes_only = dev.type == "cuda" and kind in ("dense_indel",
+                                                  "dense_general")
     rows = dict(indels=use_indels, wide=kind == "dense_general",
-                planes=kind == "dense_match")
+                planes=kind == "dense_match" or planes_only)
 
-    da = K.device_args_raw(db1, order_a, npad_a, lmax, key_a, dev, **rows)
-    db_dev = da if shared else K.device_args_raw(
-        db2, order_b, npad_b, lmax, key_b, dev, **rows
-    )
+    def derive(db, order, npad, key):
+        side = K.device_args_raw(db, order, npad, lmax, key, dev, **rows)
+        if planes_only:
+            del side["seqs"]
+            side.pop("rseqs", None)
+        return side
+
+    da = derive(db1, order_a, npad_a, key_a)
+    db_dev = da if shared else derive(db2, order_b, npad_b, key_b)
     work = order_colmajor(
         worklist_from_keys(key_a, db1.n, key_b, db2.n, int(use_indels),
                            tile_m, tile_n)

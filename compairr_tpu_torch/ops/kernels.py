@@ -10,7 +10,7 @@ engine and the sparse tile route run:
     the repertoire and count rows (device_args_raw, the dense engine's)
     or reverses the rows within their lengths and derives the key and
     original-index rows (device_rows_raw, the tile route's), and for
-    dense_match and the tile kernels the residue bit planes
+    every CUDA kernel but dense_onehot the residue bit planes
     (residue_planes: one int32 word per 32 positions and residue bit).
     Torch ops, not kernels. No one-hot rows are derived: the kernels
     read residues or planes.
@@ -204,17 +204,19 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
     """Upload a SeqDB's raw arrays (plus one all-pad sentinel row) and
     derive the key-sorted layouts the dense kernels read, on `device`:
 
-      seqs   int8  [npad, lpad]  residues, pad rows all pad residue
-      rseqs  int8  [npad, lpad]  rows reversed within their lengths
+      seqs    int8  [npad, lpad] residues, pad rows all pad residue
+      rseqs   int8  [npad, lpad] rows reversed within their lengths
                                  (only with indels)
-      planes int32 [npad, C, P]  residue_planes of seqs, P =
+      planes  int32 [npad, C, P] residue_planes of seqs, P =
                                  pad_value.bit_length() (only with
-                                 planes: dense_match's rows)
-      key32  int32 [npad]        bucket key, pads -1   (not wide)
-      cnt    int32 [npad]        duplicate count, pads 0 (not wide)
-      key64  int64 [npad]        bucket key, pads -1   (wide)
-      cnt64  int64 [npad]        duplicate count, pads 0 (wide)
-      rep    int32 [npad]        repertoire, pads -1
+                                 planes: the CUDA kernels' rows)
+      rplanes int32 [npad, C, P] residue_planes of rseqs (only with
+                                 planes and indels)
+      key32   int32 [npad]       bucket key, pads -1   (not wide)
+      cnt     int32 [npad]       duplicate count, pads 0 (not wide)
+      key64   int64 [npad]       bucket key, pads -1   (wide)
+      cnt64   int64 [npad]       duplicate count, pads 0 (wide)
+      rep     int32 [npad]       repertoire, pads -1
 
     `order` is pack_keys' permutation and `sort_key` its sorted padded
     key vector; padding rows gather the sentinel. dense_match and
@@ -254,6 +256,9 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
                                       pad_val)
     if planes:
         out["planes"] = residue_planes(seqs, pad_val.bit_length())
+        if indels:
+            out["rplanes"] = residue_planes(out["rseqs"],
+                                            pad_val.bit_length())
     return out
 
 
@@ -474,26 +479,38 @@ def dense_match_plain(a: dict, b: dict, work: torch.Tensor, *,
     )
 
 
+def _npad(side: dict) -> int:
+    """The rows of a side: its residue rows', or (a dense side whose
+    residue rows were dropped) its repertoire row's."""
+    return side["seqs" if "seqs" in side else "rep"].shape[0]
+
+
 def _check_side(side: dict, name: str, dev: torch.device,
-                wide: bool = False, indels: bool = False) -> None:
+                wide: bool = False, indels: bool = False,
+                byte_rows: bool = True) -> None:
     """A dense kernel's rows of one side (device_args_raw's): contiguous
     int8 residues (and reversed residues with indels), and [npad] rows
     rep int32 and key32/cnt int32, or key64/cnt64 int64 when wide, all
-    on dev."""
-    seqs = side["seqs"]
-    if seqs.dtype != torch.int8 or seqs.dim() != 2 or not seqs.is_contiguous():
-        raise ValueError(f"{name}['seqs'] must be a contiguous int8 [npad, lpad] tensor")
-    rows = [("seqs", seqs)]
-    if indels:
+    on dev. byte_rows=False (a CUDA kernel that reads planes, whose
+    caller may have dropped the int8 rows) lets the residue rows be
+    absent; they are checked where present."""
+    npad = _npad(side)
+    rows = []
+    seqs = side.get("seqs")
+    if byte_rows or seqs is not None:
+        if seqs is None or seqs.dtype != torch.int8 or seqs.dim() != 2 or not seqs.is_contiguous():
+            raise ValueError(f"{name}['seqs'] must be a contiguous int8 [npad, lpad] tensor")
+        rows.append(("seqs", seqs))
+    if indels and (byte_rows or side.get("rseqs") is not None):
         r = side.get("rseqs")
-        if r is None or r.dtype != torch.int8 or r.shape != seqs.shape or not r.is_contiguous():
+        if r is None or seqs is None or r.dtype != torch.int8 or r.shape != seqs.shape or not r.is_contiguous():
             raise ValueError(f"{name}['rseqs'] must be a contiguous int8 tensor shaped as seqs on indel runs")
         rows.append(("rseqs", r))
     key, cnt, wtype = (("key64", "cnt64", torch.int64) if wide
                        else ("key32", "cnt", torch.int32))
     for k, dtype in ((key, wtype), ("rep", torch.int32), (cnt, wtype)):
         x = side[k]
-        if x.dtype != dtype or x.shape != (seqs.shape[0],) or not x.is_contiguous():
+        if x.dtype != dtype or x.shape != (npad,) or not x.is_contiguous():
             raise ValueError(f"{name}[{k!r}] must be a contiguous {dtype} [npad] tensor")
         rows.append((k, x))
     for k, x in rows:
@@ -529,38 +546,65 @@ def _assert_reps(a: dict, b: dict, r1p: int, r2p: int, name: str) -> None:
             )
 
 
-def _check_smem(name: str, smem: int, tile_n: int, lpad: int) -> None:
+def _check_smem(name: str, smem: int, shape: str) -> None:
     if smem > 232448:
         raise ValueError(
-            f"{name} tile_n={tile_n}, lpad={lpad} needs {smem} bytes "
-            "of shared memory a block, over the card's 232448"
+            f"{name} {shape} needs {smem} bytes of shared memory a "
+            "block, over the card's 232448"
         )
 
 
 def _check_planes(side: dict, name: str, dev: torch.device,
                   key: str = "planes") -> None:
     """A side's residue planes (residue_planes of its seqs; rplanes, of
-    its rseqs): contiguous int32 [npad, plane_chunks(lpad), P] with
-    1 <= P <= 5, on dev, 16-byte aligned on the card."""
-    seqs, pl = side["seqs"], side.get(key)
-    npad, lpad = seqs.shape
+    its rseqs): contiguous int32 [npad, C, P] with 1 <= P <= 5 and C =
+    plane_chunks(lpad) of its residue rows (any C >= 1 on a dense side
+    whose residue rows were dropped), on dev, 16-byte aligned on the
+    card."""
+    pl, npad = side.get(key), _npad(side)
+    seqs = side.get("seqs")
+    chunks = plane_chunks(seqs.shape[1]) if seqs is not None else None
     if (
         pl is None
         or pl.dtype != torch.int32
         or pl.dim() != 3
-        or pl.shape[:2] != (npad, plane_chunks(lpad))
+        or pl.shape[0] != npad
+        or (pl.shape[1] != chunks if chunks else pl.shape[1] < 1)
         or not 1 <= pl.shape[2] <= 5
         or not pl.is_contiguous()
     ):
         raise ValueError(
             f"{name}[{key!r}] must be a contiguous int32 [{npad}, "
-            f"{plane_chunks(lpad)}, P] tensor with 1 <= P <= 5 "
+            f"{chunks or 'C'}, P] tensor with 1 <= P <= 5 "
             "(residue_planes of the rows)"
         )
     if pl.device != dev:
         raise ValueError(f"{name}[{key!r}] is on {pl.device}, expected {dev}")
     if dev.type == "cuda" and pl.data_ptr() % 16:
         raise ValueError(f"{name}[{key!r}] is not 16-byte aligned")
+
+
+def _check_plane_pair(a: dict, b: dict, dev: torch.device,
+                      indels: bool) -> None:
+    """Both sides' planes (_check_planes), and with indels the reversed
+    rows' planes shaped as the planes; one C and one P for both sides."""
+    keys = ("planes", "rplanes") if indels else ("planes",)
+    for side, name in ((a, "a"), (b, "b")):
+        for key in keys:
+            if side.get(key) is None:
+                raise ValueError(
+                    f"{name}[{key!r}] must be given: the kernel reads "
+                    "residue planes (device_args_raw or device_rows_raw "
+                    "with planes)")
+    for side, name in ((a, "a"), (b, "b")):
+        for key in keys:
+            _check_planes(side, name, dev, key)
+        if indels and side["rplanes"].shape != side["planes"].shape:
+            raise ValueError(
+                f"{name}['rplanes'] must be shaped as {name}['planes']")
+    if a["planes"].shape[1:] != b["planes"].shape[1:]:
+        raise ValueError("a and b residue planes differ in number or "
+                         "chunks")
 
 
 def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
@@ -584,10 +628,7 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     if b["seqs"].shape[1] != lpad:
         raise ValueError("a and b residue rows differ in width")
     if dev.type == "cuda" or "planes" in a or "planes" in b:
-        _check_planes(a, "a", dev)
-        _check_planes(b, "b", dev)
-        if a["planes"].shape[2] != b["planes"].shape[2]:
-            raise ValueError("a and b residue planes differ in number")
+        _check_plane_pair(a, b, dev, False)
     _check_work(work, dev)
     if tile_m <= 0 or tile_n <= 0:
         raise ValueError(f"tiles must be positive, got {tile_m}x{tile_n}")
@@ -605,7 +646,8 @@ def dense_match(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     lib = load_library("dense_match")
     _check_smem("dense_match",
                 lib.dense_match_smem_bytes(tile_m, tile_n, n_chunks,
-                                           n_planes), tile_n, lpad)
+                                           n_planes),
+                f"tile_n={tile_n}, lpad={lpad}")
     out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
     n_tiles = work.shape[0]
     if n_tiles == 0:
@@ -741,8 +783,8 @@ def dense_onehot(a: dict, b: dict, work: torch.Tensor, *, differences: int,
         return dense_onehot_plain(a, b, work, **kw)
     lpad = a["seqs"].shape[1]
     lib = load_library("dense_onehot")
-    _check_smem("dense_onehot", lib.dense_onehot_smem_bytes(lpad), tile_n,
-                lpad)
+    _check_smem("dense_onehot", lib.dense_onehot_smem_bytes(lpad),
+                f"lpad={lpad}")
     out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
     if work.shape[0] == 0:
         return out
@@ -918,16 +960,7 @@ def _check_tiles(a: dict, b: dict, work: torch.Tensor, cls: int,
         raise ValueError(f"tile kernels run on cuda or cpu tensors, not {dev}")
     _assert_tiles_inside(a, b, work, tile_m, tile_n, "tile_match")
     if dev.type == "cuda" or "planes" in a or "planes" in b:
-        keys = ("planes",) if cls == CLS_HAMMING else ("planes", "rplanes")
-        for side, name in ((a, "a"), (b, "b")):
-            for key in keys:
-                _check_planes(side, name, dev, key)
-            if cls != CLS_HAMMING and (side["rplanes"].shape
-                                       != side["planes"].shape):
-                raise ValueError(
-                    f"{name}['rplanes'] must be shaped as {name}['planes']")
-        if a["planes"].shape[2] != b["planes"].shape[2]:
-            raise ValueError("a and b residue planes differ in number")
+        _check_plane_pair(a, b, dev, cls != CLS_HAMMING)
     return dev
 
 
@@ -938,8 +971,8 @@ def _assert_tiles_inside(a: dict, b: dict, work: torch.Tensor, tile_m: int,
     if len(work):
         torch._assert_async(
             (work.min() >= 0)
-            & (work[:, 0].max() <= a["seqs"].shape[0] - tile_m)
-            & (work[:, 1].max() <= b["seqs"].shape[0] - tile_n),
+            & (work[:, 0].max() <= _npad(a) - tile_m)
+            & (work[:, 1].max() <= _npad(b) - tile_n),
             f"{name}: a worklist tile lies outside the row sets",
         )
 
@@ -968,7 +1001,7 @@ def _tile_library(a: dict, cls: int, tile_m: int, tile_n: int):
     _check_smem("tile_match",
                 lib.tile_match_smem_bytes(tile_m, tile_n, n_chunks, n_planes,
                                           cls),
-                tile_n, a["seqs"].shape[1])
+                f"tile_n={tile_n}, lpad={a['seqs'].shape[1]}")
     return lib
 
 
@@ -1129,50 +1162,84 @@ def dense_general_plain(a: dict, b: dict, work: torch.Tensor, *,
 
 def _check_join(a: dict, b: dict, work: torch.Tensor, *, wide: bool,
                 indels: bool, tile_m: int, tile_n: int, r1p: int, r2p: int,
-                name: str) -> torch.device:
+                name: str, planes: bool = False) -> torch.device:
     """The device of a dense_indel / dense_general / dense_onehot call,
     after its input checks: the rows' types, shapes, devices and
     alignment, the worklist's, and (on the device, with no host sync)
     that every tile lies inside both row sets and every repertoire
-    inside the matrix."""
-    dev = a["seqs"].device
-    _check_side(a, "a", dev, wide=wide, indels=indels)
-    _check_side(b, "b", dev, wide=wide, indels=indels)
-    lpad = a["seqs"].shape[1]
-    if b["seqs"].shape[1] != lpad:
+    inside the matrix. planes: the CUDA kernel reads residue planes
+    (and, with indels, the reversed rows' planes), which a CUDA call
+    then requires in place of the residue rows; the plain version reads
+    the residue rows, and the planes are checked where present."""
+    dev = a["rep"].device
+    cuda_planes = planes and dev.type == "cuda"
+    _check_side(a, "a", dev, wide=wide, indels=indels,
+                byte_rows=not cuda_planes)
+    _check_side(b, "b", dev, wide=wide, indels=indels,
+                byte_rows=not cuda_planes)
+    if "seqs" in a and "seqs" in b and (b["seqs"].shape[1]
+                                        != a["seqs"].shape[1]):
         raise ValueError("a and b residue rows differ in width")
     _check_work(work, dev)
     if tile_m <= 0 or tile_n <= 0:
         raise ValueError(f"tiles must be positive, got {tile_m}x{tile_n}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
-    if dev.type == "cuda" and lpad % 4:
-        raise ValueError(f"{name} needs lpad % 4 == 0, got {lpad}")
+    if cuda_planes or (planes and ("planes" in a or "planes" in b)):
+        _check_plane_pair(a, b, dev, indels)
+    elif dev.type == "cuda" and a["seqs"].shape[1] % 4:
+        raise ValueError(f"{name} needs lpad % 4 == 0, got "
+                         f"{a['seqs'].shape[1]}")
     _assert_tiles_inside(a, b, work, tile_m, tile_n, name)
     _assert_reps(a, b, r1p, r2p, name)
     return dev
 
 
-def _join_args(a: dict, b: dict, work: torch.Tensor, key: str, cnt: str,
-               indels: bool):
-    """The leading arguments of both C launch functions (the reversed
-    rows only on indel runs)."""
+def _launch_join(name: str, a: dict, b: dict, work: torch.Tensor, *,
+                 wide: bool, indels: bool, float_out: bool,
+                 differences: int, score_mode: int, tile_m: int,
+                 tile_n: int, r1p: int, r2p: int) -> torch.Tensor:
+    """dense_indel's or dense_general's kernel (csrc/dense_general.cu) on
+    checked CUDA inputs: the [r1p, r2p] matrix, int64 or float64."""
+    dev = a["rep"].device
+    lib = load_library("dense_general")
+    n_chunks, n_planes = a["planes"].shape[1:]
+    if name == "dense_indel":
+        smem = lib.dense_indel_smem_bytes(tile_m, tile_n, n_chunks, n_planes)
+    else:
+        smem = lib.dense_general_smem_bytes(tile_m, tile_n, n_chunks,
+                                            n_planes, int(indels))
+    _check_smem(name, smem, f"{tile_m}x{tile_n}, C={n_chunks}, P={n_planes}")
+    out = torch.zeros((r1p, r2p),
+                      dtype=torch.float64 if float_out else torch.int64,
+                      device=dev)
+    if work.shape[0] == 0:
+        return out
+    key, cnt = ("key64", "cnt64") if wide else ("key32", "cnt")
     args = []
     for side in (a, b):
-        args += [side["seqs"].data_ptr(),
-                 side["rseqs"].data_ptr() if indels else None,
+        args += [side["planes"].data_ptr(),
+                 side["rplanes"].data_ptr() if indels else None,
                  side[key].data_ptr(), side["rep"].data_ptr(),
                  side[cnt].data_ptr()]
-    return (*args, work.data_ptr(), work.shape[0], a["seqs"].shape[0],
-            b["seqs"].shape[0])
-
-
-def _raise_join(lib, name: str, err: int) -> None:
+    args += [work.data_ptr(), work.shape[0], _npad(a), _npad(b), tile_m,
+             tile_n, n_chunks, n_planes, differences]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if name == "dense_indel":
+            err = lib.dense_indel_launch(*args, score_mode, r2p,
+                                         out.data_ptr(), stream)
+        else:
+            err = lib.dense_general_launch(*args, int(indels), score_mode,
+                                           r2p, int(float_out),
+                                           out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} "
             f"({lib.dense_general_error_string(err).decode()})"
         )
+    _count_launch(name)
+    return out
 
 
 def dense_indel(a: dict, b: dict, work: torch.Tensor, *, differences: int,
@@ -1184,34 +1251,24 @@ def dense_indel(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     `differences` differing residues) or by the indel test (keys 1
     apart, prefix + suffix >= the shorter length). a/b are
     device_args_raw dicts with indels (int32 key and count rows),
-    key-sorted with pads (key -1) last, as the kernel's binary search
-    needs; work is int32 [T, 2] element starts of tiles inside both row
+    key-sorted with pads (key -1) last, as the kernel's key windows
+    need; work is int32 [T, 2] element starts of tiles inside both row
     sets, on the same device. No ratio. CUDA tensors launch
-    csrc/dense_general.cu; CPU tensors take dense_indel_plain."""
+    csrc/dense_general.cu, which reads the residue planes and the
+    reversed rows' planes (device_args_raw with planes) and raises
+    without them; CPU tensors take dense_indel_plain, which reads the
+    residue rows."""
     dev = _check_join(a, b, work, wide=False, indels=True, tile_m=tile_m,
-                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_indel")
+                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_indel",
+                      planes=True)
     if score_mode == SC_RATIO:
         raise ValueError("dense_indel sums integers: no ratio score")
     kw = dict(differences=differences, score_mode=score_mode,
               tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
     if dev.type == "cpu":
         return dense_indel_plain(a, b, work, **kw)
-    lpad = a["seqs"].shape[1]
-    lib = load_library("dense_general")
-    _check_smem("dense_indel", lib.dense_indel_smem_bytes(tile_n, lpad),
-                tile_n, lpad)
-    out = torch.zeros((r1p, r2p), dtype=torch.int64, device=dev)
-    if work.shape[0] == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = lib.dense_indel_launch(
-            *_join_args(a, b, work, "key32", "cnt", True), tile_m, tile_n,
-            lpad, differences, score_mode, r2p, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_join(lib, "dense_indel", err)
-    _count_launch("dense_indel")
-    return out
+    return _launch_join("dense_indel", a, b, work, wide=False, indels=True,
+                        float_out=False, **kw)
 
 
 def dense_general(a: dict, b: dict, work: torch.Tensor, *, differences: int,
@@ -1222,37 +1279,22 @@ def dense_general(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     test only with indels) over wide rows (device_args_raw with wide:
     int64 key and count rows), in int64, or in float64 with float_out.
     The ratio score needs float_out; the caller takes int64 only where
-    no cell can pass 2^62 (engine._int64_exact). CUDA tensors launch
-    csrc/dense_general.cu; CPU tensors take dense_general_plain."""
+    no cell can pass 2^62 (engine._cell_bound). CUDA tensors launch
+    csrc/dense_general.cu, which reads the residue planes (and, with
+    indels, the reversed rows' planes) and raises without them; CPU
+    tensors take dense_general_plain."""
     dev = _check_join(a, b, work, wide=True, indels=indels, tile_m=tile_m,
-                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_general")
+                      tile_n=tile_n, r1p=r1p, r2p=r2p, name="dense_general",
+                      planes=True)
     if score_mode == SC_RATIO and not float_out:
         raise ValueError("dense_general sums ratio scores in float64 only")
-    kw = dict(differences=differences, indels=indels, score_mode=score_mode,
-              float_out=float_out, tile_m=tile_m, tile_n=tile_n, r1p=r1p,
-              r2p=r2p)
+    kw = dict(differences=differences, score_mode=score_mode, tile_m=tile_m,
+              tile_n=tile_n, r1p=r1p, r2p=r2p)
     if dev.type == "cpu":
-        return dense_general_plain(a, b, work, **kw)
-    lpad = a["seqs"].shape[1]
-    lib = load_library("dense_general")
-    _check_smem("dense_general",
-                lib.dense_general_smem_bytes(tile_n, lpad, int(indels)),
-                tile_n, lpad)
-    out = torch.zeros((r1p, r2p),
-                      dtype=torch.float64 if float_out else torch.int64,
-                      device=dev)
-    if work.shape[0] == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = lib.dense_general_launch(
-            *_join_args(a, b, work, "key64", "cnt64", indels), tile_m,
-            tile_n, lpad, differences, int(indels), score_mode, r2p,
-            int(float_out), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_join(lib, "dense_general", err)
-    _count_launch("dense_general")
-    return out
+        return dense_general_plain(a, b, work, indels=indels,
+                                   float_out=float_out, **kw)
+    return _launch_join("dense_general", a, b, work, wide=True,
+                        indels=indels, float_out=float_out, **kw)
 
 
 # --------------------------------------------------------------------
@@ -1274,10 +1316,10 @@ _SIGNATURES = {
         "dense_onehot_error_string": ([_I], ctypes.c_char_p),
     },
     "dense_general": {
-        "dense_indel_launch": ([_P] * 11 + [_I] * 9 + [_P, _P], _I),
-        "dense_general_launch": ([_P] * 11 + [_I] * 11 + [_P, _P], _I),
-        "dense_indel_smem_bytes": ([_I, _I], _I),
-        "dense_general_smem_bytes": ([_I, _I, _I], _I),
+        "dense_indel_launch": ([_P] * 11 + [_I] * 10 + [_P, _P], _I),
+        "dense_general_launch": ([_P] * 11 + [_I] * 12 + [_P, _P], _I),
+        "dense_indel_smem_bytes": ([_I] * 4, _I),
+        "dense_general_smem_bytes": ([_I] * 5, _I),
         "dense_general_error_string": ([_I], ctypes.c_char_p),
     },
     "tile_match": {

@@ -387,23 +387,69 @@ def _counted(db, seed, high=100):
     return replace(db, counts=rng.integers(1, high, db.n).astype(np.int64))
 
 
-def _join_inputs(d1, d2, dev, tile, indels, wide):
+def _join_inputs(d1, d2, dev, tile, indels, wide, by_vjl=True):
     """dense_indel / dense_general inputs as engine.dense_matrix builds
-    them (a self-comparison shares one derive)."""
+    them, with the residue rows kept beside the planes that the kernels
+    read, so that the plain versions run on the same inputs (a
+    self-comparison shares one derive); by_vjl=False keys by length
+    alone (-g)."""
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
     lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
-    oa, ka, na = E.pack_keys(d1, tile, True)
-    ob, kb, nb = E.pack_keys(d2, tile, True)
+    oa, ka, na = E.pack_keys(d1, tile, by_vjl)
+    ob, kb, nb = E.pack_keys(d2, tile, by_vjl)
     work = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     )
     a = K.device_args_raw(d1, oa, na, lpad, ka, dev, indels=indels,
-                          wide=wide)
+                          wide=wide, planes=True)
     b = a if d2 is d1 else K.device_args_raw(d2, ob, nb, lpad, kb, dev,
-                                             indels=indels, wide=wide)
+                                             indels=indels, wide=wide,
+                                             planes=True)
     return a, b, K.upload_worklist(work, dev)
+
+
+# (kernel, indels, d, [(score mode, float_out)]) of _check_join_equal_plain;
+# score modes as kernels.SC_*: 1 product, 2 min, 3 max, 4 sum, 5 ratio
+_JOIN_RUNS = (
+    ("dense_indel", True, 1, [(1, False), (2, False), (4, False)]),
+    ("dense_general", True, 1, [(3, False), (5, True)]),
+    ("dense_general", False, 2, [(2, False), (1, True)]),
+)
+
+
+def _check_join_equal_plain(d1, d2, dev, tile, runs=_JOIN_RUNS,
+                            by_vjl=True):
+    """Each (kernel, indels, d, modes) of runs on d1 x d2 at tile: the
+    kernel launched once and equal to its plain version (int64 sums
+    torch.equal, float64 sums within rtol 1e-12: atomics add in no fixed
+    order), with some pair matched."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    for kernel, indels, d, modes in runs:
+        wide = kernel == "dense_general"
+        a, b, work = _join_inputs(d1, d2, dev, tile, indels, wide, by_vjl)
+        for mode, float_out in modes:
+            kw = dict(differences=d, score_mode=mode, tile_m=tile,
+                      tile_n=tile, r1p=8, r2p=128)
+            if wide:
+                kw.update(indels=indels, float_out=float_out)
+                fn, plain = K.dense_general, K.dense_general_plain
+            else:
+                fn, plain = K.dense_indel, K.dense_indel_plain
+            before = K.LAUNCHES[kernel]
+            got = fn(a, b, work, **kw)
+            assert K.LAUNCHES[kernel] == before + 1
+            want = plain(a, b, work, **kw)
+            torch.cuda.synchronize()
+            if float_out:
+                torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+            else:
+                assert torch.equal(got, want), (kernel, mode, indels, tile)
+            assert float(want.sum()) > 0, (kernel, mode, indels, tile)
 
 
 @pytest.mark.parametrize("tile", [128, 768])
@@ -487,6 +533,123 @@ def test_dense_matrix_new_kernels_cuda_equals_cpu(cuda, case):
         np.testing.assert_allclose(got, want, rtol=1e-12)
     else:
         np.testing.assert_array_equal(got, want)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("lpad", [48, 136, 200])
+def test_dense_join_kernels_at_every_lpad(cuda, lpad):
+    """Nucleotide rows (3 planes) at lpad 48 (C = 2, compile-time C/P)
+    and at 136 and 200 (C = 5 and 7: the runtime-C/P loop), both
+    kernels at tile 128, two sets and a self-comparison."""
+    d1, d2 = _planted_pair(lpad)
+    d1, d2 = _counted(d1, 7), _counted(d2, 8)
+    _check_join_equal_plain(d1, d2, cuda, 128)
+    s = _concat(d1, d2)
+    _check_join_equal_plain(s, s, cuda, 128, runs=_JOIN_RUNS[:1])
+
+
+def test_dense_join_kernels_chunked_b_planes(cuda):
+    """lpad 200 at tile 768: the b tile's planes (and reversed planes)
+    pass the kernel's 64 KiB staging budget, so they go in two column
+    chunks and a key window may span both."""
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(200)
+    d1, d2 = _counted(d1, 9), _counted(d2, 10)
+    cp = K.plane_chunks(200) * 3
+    assert 4 * cp * (768 + 1) * 2 > 64 * 1024
+    _check_join_equal_plain(d1, d2, cuda, 768)
+
+
+@pytest.mark.parametrize("tile", [128, 768])
+def test_dense_join_kernels_g_cut(cuda, tile):
+    """-g: keys by length alone, so tiles hold one or a few keys and
+    every a run's window spans most of the b tile."""
+    d1, d2 = _planted_pair(24)
+    d1, d2 = _counted(d1, 11), _counted(d2, 12)
+    _check_join_equal_plain(d1, d2, cuda, tile, by_vjl=False)
+
+
+def test_dense_general_sums_past_int64(cuda):
+    """Counts x 2^32 with 2^32 counts: products past 2^63 are summed in
+    float64, as engine.dense_matrix asks when a cell could pass 2^62;
+    keys >= 2^31 as well."""
+    import numpy as np
+    from dataclasses import replace
+
+    d1, d2 = _planted_pair(24, v_offset=1 << 15)
+    d1, d2 = (replace(x, counts=_counted(x, s).counts << 32)
+              for x, s in ((d1, 13), (d2, 14)))
+    assert int(d1.counts.max()) * int(d2.counts.max()) > np.iinfo(np.int64).max
+    _check_join_equal_plain(d1, d2, cuda, 128, runs=(
+        ("dense_general", True, 1, [(1, True), (4, True)]),
+        ("dense_general", False, 2, [(1, True)]),
+    ))
+
+
+def test_dense_join_kernels_require_planes(cuda):
+    """On the card both kernels read only planes: a side without them
+    (or without the reversed rows' planes on an indel run) raises, with
+    no fallback to the residue rows and no launch."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    a, b, work = _join_inputs(d1, d2, cuda, 128, True, False)
+    wa, wb, wwork = _join_inputs(d1, d2, cuda, 128, True, True)
+    kw = dict(differences=1, score_mode=K.SC_PRODUCT, tile_m=128,
+              tile_n=128, r1p=8, r2p=128)
+
+    def bare(side):
+        return {k: v for k, v in side.items()
+                if k not in ("planes", "rplanes")}
+
+    before = dict(K.LAUNCHES)
+    for strip in (bare, lambda side: {k: v for k, v in side.items()
+                                      if k != "rplanes"}):
+        with pytest.raises(ValueError, match="planes"):
+            K.dense_indel(strip(a), b, work, **kw)
+        with pytest.raises(ValueError, match="planes"):
+            K.dense_general(wa, strip(wb), wwork, indels=True,
+                            float_out=False, **kw)
+    with pytest.raises(ValueError, match="planes"):
+        K.dense_general(bare(wa), wb, wwork, indels=False, float_out=False,
+                        **dict(kw, differences=2))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("indels", [True, False], ids=["d1_indel", "d2"])
+def test_dense_matrix_join_reads_planes_only(cuda, monkeypatch, indels):
+    """dense_matrix's dense_indel / dense_general rows on the card hold
+    the planes and no int8 rows, and the matrix equals the CPU's."""
+    import numpy as np
+
+    from compairr_tpu_torch.constants import SCORE_MIN, SCORE_PRODUCT
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
+
+    d1, d2 = _planted_pair(24)
+    d1, d2 = _counted(d1, 15), _counted(d2, 16)
+    rows = []
+    real = K.device_args_raw
+
+    def spy(*args, **kw):
+        rows.append(real(*args, **kw))
+        return rows[-1]
+
+    monkeypatch.setattr(K, "device_args_raw", spy)
+    spec = MatchSpec(differences=1 if indels else 2, indels=indels,
+                     ignore_genes=False)
+    score = SCORE_PRODUCT if indels else SCORE_MIN
+    got = dense_matrix(d1, d2, spec, score, False, device="cuda")
+    assert len(rows) == 2
+    for side in rows:
+        assert "seqs" not in side and "rseqs" not in side
+        assert "planes" in side and ("rplanes" in side) == indels
+    want = dense_matrix(d1, d2, spec, score, False, device="cpu")
+    np.testing.assert_array_equal(got, want)
     assert want.sum() > 0
 
 
