@@ -97,13 +97,17 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      nucleotide pair (lpad 48); drives dense_matrix under
      COMPAIRR_V3=0 over the kernel workload (sum 24,865,230) and the
      1M x 1M -g run, each equal to dense_match's matrix; times
-     dense_onehot against dense_match in turns (kernel workload at
-     tiles 768 and 128, -g at 768, the 100k -g cut at 768 and 128) and
-     dense_match alone on -g at the CLI's tile (128), with the plain
-     versions, the bound, dense_match's design floor (C (P + 2) integer
-     operations an equal-key pair on the CUDA cores), the one-hot
-     formulation's tensor-core operations and a torch._int_mm of the
-     same depth as a rate yardstick; and runs the CLI's -m -d 2 under
+     dense_onehot against dense_match in turns, a call (CUDA events)
+     and the kernel alone (torch.profiler), on the kernel workload at
+     tiles 768 and 128, -g at 1M rows a set at tiles 768 and 128 (2
+     calls a turn) and the 100k -g cut at 768 and 128, with the plain
+     versions (not on the 1M -g runs), the bound, dense_match's design
+     floor (C (P + 2) integer operations an equal-key pair on the CUDA
+     cores), the one-hot formulation's tensor-core operations (every
+     worklist tile), its skip floor (the same over the 64 x 128
+     sub-blocks whose key ranges meet, from the 64-row groups' ranges)
+     and a torch._int_mm of the same depth as a rate yardstick for the
+     skip floor's operations; and runs the CLI's -m -d 2 under
      COMPAIRR_ENGINE=dense COMPAIRR_V3=0 against the host route;
  19. times the tile route of find_pairs under -g (keys by length alone)
      on the indel workload's sets (phase 7's), their 100k cut and the 1M
@@ -175,6 +179,12 @@ RATIO_RTOL = 1e-12  # float64 sums, added in no fixed order
 # side of the torch._int_mm yardstick (a 4 GiB int32 product)
 G_ROWS = 100_000
 INT_MM_SIDE_MAX = 32768
+# phase 18: dense_onehot's sub-block, 64 a rows by its b chunk of 128
+# columns (csrc/dense_onehot.cu at lpad 24, every timed run's), and the
+# launches timed a 1M -g run, each of which takes a sizeable fraction of a
+# second
+ONEHOT_SLICE, ONEHOT_CHUNK = 64, 128
+G_ONEHOT_REPS = 2
 # phase 17: launches timed a -g 1M run of dense_indel or dense_general
 G_JOIN_REPS = 2
 
@@ -796,6 +806,57 @@ def onehot_ops(p):
     from compairr_tpu_torch.ops import kernels as K
 
     return 2.0 * len(p["work"]) * p["tile"] ** 2 * K.onehot_width(p["lpad"])
+
+
+def group_ranges(side):
+    """The min and max key over the rows with rep >= 0 of each 64-row
+    group of a side (lo > hi for a group without one), as int64 [groups]
+    rows lo and hi: the key ranges dense_onehot skips sub-blocks by,
+    computed here on their own."""
+    import torch
+
+    real = side["rep"] >= 0
+    key = side["key32"].long()
+    n = key.shape[0]
+    fill = -(-n // ONEHOT_SLICE) * ONEHOT_SLICE - n
+    lo = torch.nn.functional.pad(torch.where(real, key, 1 << 31), (0, fill),
+                                 value=1 << 31)
+    hi = torch.nn.functional.pad(torch.where(real, key, -(1 << 31) - 1),
+                                 (0, fill), value=-(1 << 31) - 1)
+    return (lo.view(-1, ONEHOT_SLICE).amin(1),
+            hi.view(-1, ONEHOT_SLICE).amax(1))
+
+
+def skip_floor(p, card_name):
+    """dense_onehot's skip floor on p (prepare's; tiles multiples of
+    ONEHOT_CHUNK): 2 x 64 x ONEHOT_CHUNK x K int8 tensor-core operations
+    for each 64-row a slice and b chunk of the worklist's tiles whose key
+    ranges meet (the sub-blocks the kernel multiplies), over the int8
+    peak, in ms; with the sub-blocks counted."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    tile = p["tile"]
+    n_s, n_c = tile // ONEHOT_SLICE, tile // ONEHOT_CHUNK
+    alo, ahi = group_ranges(p["a"])
+    blo, bhi = group_ranges(p["b"])
+    per = ONEHOT_CHUNK // ONEHOT_SLICE  # groups a chunk
+    meet = 0
+    work = p["work_dev"].long()
+    for s0 in range(0, len(work), 1 << 20):
+        w = work[s0:s0 + (1 << 20)]
+        ga = w[:, :1] // ONEHOT_SLICE + torch.arange(n_s, device=w.device)
+        gb = (w[:, 1:] // ONEHOT_SLICE
+              + torch.arange(n_c * per, device=w.device)).view(-1, n_c, per)
+        la, ha = alo[ga][:, :, None], ahi[ga][:, :, None]
+        lb, hb = blo[gb].amin(2)[:, None, :], bhi[gb].amax(2)[:, None, :]
+        meet += int(((la <= ha) & (lb <= hb) & (la <= hb) & (lb <= ha))
+                    .sum())
+    total = len(work) * n_s * n_c
+    ops = 2.0 * ONEHOT_SLICE * ONEHOT_CHUNK * K.onehot_width(p["lpad"]) * meet
+    return {"sub_blocks": total, "sub_blocks_meeting": meet,
+            "skip_ops": ops, "skip_floor_ms": ops / PEAKS[card_name][0] * 1e3}
 
 
 def match_floor(q, card_name):
@@ -2119,33 +2180,35 @@ def main(argv) -> int:
                                  f"{KERNEL_CHECKSUM}")
         res["matrix"] = sums
 
-        # (c) dense_onehot against dense_match, in turns, on one card
-        # (dense_match alone on the 1M -g run at the CLI's tile, 128)
+        # (c) dense_onehot against dense_match, in turns, on one card: a
+        # call (CUDA events over back-to-back wrapper calls) and the
+        # kernel alone (torch.profiler), the 1M -g runs with few launches
         res["timing"] = {}
-        both = ("dense_onehot", "dense_match", "dense_match", "dense_onehot")
-        alone = ("dense_match", "dense_match")
-        for tag, mk, plain, turns in (
-            ("kernel workload, tile 768", lambda: p, True, both),
+        turns = ("dense_onehot", "dense_match", "dense_match", "dense_onehot")
+        for tag, mk, plain, reps in (
+            ("kernel workload, tile 768", lambda: p, True, 10),
             ("kernel workload, tile 128", lambda: prepare(d1, d2, dev, 128),
-             True, both),
+             True, 10),
             ("-g, tile 768", lambda: prepare(d1, d2, dev, by_vjl=False),
-             False, both),
+             False, G_ONEHOT_REPS),
             ("-g, tile 128",
              lambda: prepare(d1, d2, dev, E.TILE_M, by_vjl=False), False,
-             alone),
+             G_ONEHOT_REPS),
             (f"-g, {G_ROWS} rows a set, tile 768",
-             lambda: prepare(*g_cut, dev, by_vjl=False), True, both),
+             lambda: prepare(*g_cut, dev, by_vjl=False), True, 10),
             (f"-g, {G_ROWS} rows a set, tile 128",
-             lambda: prepare(*g_cut, dev, E.TILE_M, by_vjl=False), True,
-             both),
+             lambda: prepare(*g_cut, dev, E.TILE_M, by_vjl=False), True, 10),
         ):
             q = mk()
             fns = {"dense_onehot": lambda: run_onehot(q, K.SC_PRODUCT),
                    "dense_match": lambda: run_kernel(q, K.SC_PRODUCT)}
+            warm = 1 if reps < 10 else 2
             walls = {k: [] for k in turns}
             for kname in turns:
-                walls[kname].append(cuda_ms(fns[kname], reps=10))
+                walls[kname].append(cuda_ms(fns[kname], reps=reps, warm=warm))
             ms = {k: float(np.mean(v)) for k, v in walls.items()}
+            dev_ms = {k: kernel_ms(fns[k], f"{k}_kernel", reps=reps,
+                                   warm=warm) for k in ms}
             plain_ms = {}
             plains = {"dense_onehot": lambda: run_onehot(q, K.SC_PRODUCT,
                                                          plain=True),
@@ -2158,36 +2221,41 @@ def main(argv) -> int:
                 plain_ms[kname] = (time.perf_counter() - t0) * 1e3
             bd = dense_bound(q, name)
             fl = match_floor(q, name)
+            sk = skip_floor(q, name)
+            ops = onehot_ops(q)
+            yard = int_mm_yardstick(sk["skip_ops"] / 2, q["lpad"], dev)
             row = {"tiles": len(q["work"]), "tile": q["tile"], "ms": ms,
-                   "ms_halves": walls, "plain_ms": plain_ms, **bd, **fl}
-            text = (f"  {tag}: {len(q['work'])} worklist tiles; "
-                    + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-                    + f" a launch (CUDA events, {len(turns) // len(ms)} x 10"
-                    f" launches each, in turns: {walls}), 1 launch a "
-                    f"dense_matrix call; plain versions "
-                    + (", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
-                       or "not timed")
-                    + f"; bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
-                    f"({bd['bytes']} bytes -> {bd['bytes_ms']:.6f} ms; "
-                    f"{bd['equal_key_pairs']} equal-key pairs, "
-                    f"{bd['ops']:.4g} ops -> {bd['ops_ms']:.6f} ms); "
-                    f"dense_match's design floor {fl['floor_ops']:.4g} "
-                    f"integer ops -> {fl['floor_ms']:.4f} ms")
-            if "dense_onehot" in ms:
-                ops = onehot_ops(q)
-                yard = int_mm_yardstick(ops / 2, q["lpad"], dev)
-                row.update(formulation_ops=ops,
-                           formulation_ms=ops / PEAKS[name][0] * 1e3,
-                           int_mm=yard)
-                text += (f"; dense_onehot's formulation {ops:.4g} int8 "
-                         f"tensor-core ops -> "
-                         f"{ops / PEAKS[name][0] * 1e3:.4f} ms at peak; "
-                         f"yardstick (not called by the port) torch._int_mm "
-                         f"{yard['shape']} {yard['ms']:.4f} ms "
-                         f"({yard['tops']:.1f} TOP/s), x{yard['scale']:.4g} "
-                         f"-> {yard['ms_scaled']:.4f} ms")
+                   "kernel_ms": dev_ms, "ms_halves": walls,
+                   "plain_ms": plain_ms, **bd, **fl, **sk,
+                   "formulation_ops": ops,
+                   "formulation_ms": ops / PEAKS[name][0] * 1e3,
+                   "int_mm": yard}
+            print(f"  {tag}: {len(q['work'])} worklist tiles; "
+                  + ", ".join(f"{k} {v:.4f} ms a call, "
+                              f"{fmt_ms(dev_ms[k])} the kernel alone"
+                              for k, v in ms.items())
+                  + f" (CUDA events, 2 x {reps} calls each, in turns: "
+                  f"{walls}; torch.profiler), 1 launch a dense_matrix call; "
+                  "plain versions "
+                  + (", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items())
+                     or "not timed")
+                  + f"; bound {bd['bound_ms']:.6f} ms by {bd['bound_by']} "
+                  f"({bd['bytes']} bytes -> {bd['bytes_ms']:.6f} ms; "
+                  f"{bd['equal_key_pairs']} equal-key pairs, "
+                  f"{bd['ops']:.4g} ops -> {bd['ops_ms']:.6f} ms); "
+                  f"dense_match's design floor {fl['floor_ops']:.4g} "
+                  f"integer ops -> {fl['floor_ms']:.4f} ms; dense_onehot's "
+                  f"formulation {ops:.4g} int8 tensor-core ops -> "
+                  f"{row['formulation_ms']:.4f} ms at peak; its skip floor: "
+                  f"{sk['sub_blocks_meeting']} of {sk['sub_blocks']} "
+                  f"{ONEHOT_SLICE} x {ONEHOT_CHUNK} sub-blocks meet "
+                  f"({sk['sub_blocks_meeting'] / sk['sub_blocks']:.4f}), "
+                  f"{sk['skip_ops']:.4g} ops -> {sk['skip_floor_ms']:.4f} ms; "
+                  f"yardstick (not called by the port) torch._int_mm "
+                  f"{yard['shape']} {yard['ms']:.4f} ms "
+                  f"({yard['tops']:.1f} TOP/s), x{yard['scale']:.4g} "
+                  f"-> {yard['ms_scaled']:.4f} ms for the skip floor's ops")
             res["timing"][tag] = row
-            print(text)
             del q
 
         # (d) the CLI under COMPAIRR_ENGINE=dense COMPAIRR_V3=0
@@ -2354,6 +2422,7 @@ def main(argv) -> int:
         })
     oh = report["onehot"]
     oh_t = oh["timing"]["kernel workload, tile 768"]
+    oh_g = oh["timing"]["-g, tile 768"]
     kernels.append({
         "name": "dense_onehot",
         "route": "cuda",
@@ -2366,6 +2435,8 @@ def main(argv) -> int:
         "bound_ms": oh_t["bound_ms"],
         "bound_by": oh_t["bound_by"],
         "library_ms": None,
+        "kernel_ms": oh_t["kernel_ms"]["dense_onehot"],
+        "g_ms": oh_g["ms"]["dense_onehot"],
     })
     print(card)
     print(json.dumps({"kernels": kernels}))

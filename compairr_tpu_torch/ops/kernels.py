@@ -761,8 +761,9 @@ def dense_onehot(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     count rows) in any row order; work is int32 [T, 2] element starts
     of tiles inside both row sets, on the same device; tile_m and
     tile_n are multiples of 64 and every residue code is below
-    ONEHOT_CLASSES. No ratio. CUDA tensors launch csrc/dense_onehot.cu;
-    CPU tensors take dense_onehot_plain."""
+    ONEHOT_CLASSES. No ratio. CUDA tensors launch csrc/dense_onehot.cu,
+    which skips the sub-blocks whose keys cannot meet; CPU tensors take
+    dense_onehot_plain."""
     if tile_m % _ONEHOT_TILE or tile_n % _ONEHOT_TILE:
         raise ValueError(f"dense_onehot needs tiles that are multiples of "
                          f"{_ONEHOT_TILE}, got {tile_m}x{tile_n}")

@@ -653,36 +653,88 @@ def test_dense_matrix_join_reads_planes_only(cuda, monkeypatch, indels):
     assert want.sum() > 0
 
 
-def _onehot_inputs(d1, d2, dev, tm, tn):
+def _onehot_inputs(d1, d2, dev, tm, tn, by_vjl=True, shuffle=False):
     """dense_onehot inputs with tiles tm x tn (each set packed at its
     own tile), and two worklists: the one from the keys and every tile
-    pair of both padded row sets (pads and all-pad tiles)."""
+    pair of both padded row sets (pads and all-pad tiles); by_vjl=False
+    keys by length alone (-g); shuffle permutes each side's rows (the
+    worklist then no longer follows the keys, and every key range is
+    wide)."""
     import numpy as np
+    import torch
 
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
     lpad = E._round_up(int(max(d1.longest, d2.longest)), 8)
-    oa, ka, na = E.pack_keys(d1, tm, True)
-    ob, kb, nb = E.pack_keys(d2, tn, True)
+    oa, ka, na = E.pack_keys(d1, tm, by_vjl)
+    ob, kb, nb = E.pack_keys(d2, tn, by_vjl)
     keyed = E.order_colmajor(
         E.worklist_from_keys(ka, d1.n, kb, d2.n, 0, tm, tn))
     every = np.array([(r, c) for r in range(0, na - tm + 1, tm)
                       for c in range(0, nb - tn + 1, tn)], dtype=np.int32)
-    return (K.device_args_raw(d1, oa, na, lpad, ka, dev),
-            K.device_args_raw(d2, ob, nb, lpad, kb, dev),
-            [K.upload_worklist(w, dev) for w in (keyed, every)])
+    a = K.device_args_raw(d1, oa, na, lpad, ka, dev)
+    b = K.device_args_raw(d2, ob, nb, lpad, kb, dev)
+    if shuffle:
+        gen = torch.Generator().manual_seed(na + nb)
+        for side in (a, b):
+            perm = torch.randperm(side["rep"].shape[0], generator=gen).to(dev)
+            for k in ("seqs", "key32", "rep", "cnt"):
+                side[k] = side[k][perm].contiguous()
+    return a, b, [K.upload_worklist(w, dev) for w in (keyed, every)]
+
+
+def _group_ranges(side):
+    """[groups, 2] min and max key over the rows with rep >= 0 of each
+    64-row group of a side, row by row; (2^31 - 1, -2^31) for a group
+    without one: the ranges dense_onehot skips sub-blocks by."""
+    import numpy as np
+
+    key, rep = side["key32"].cpu().numpy(), side["rep"].cpu().numpy()
+    groups = -(-len(key) // 64)
+    out = np.empty((groups, 2), dtype=np.int64)
+    for gi in range(groups):
+        real = key[gi * 64:(gi + 1) * 64][rep[gi * 64:(gi + 1) * 64] >= 0]
+        out[gi] = ((real.min(), real.max()) if len(real)
+                   else (2 ** 31 - 1, -2 ** 31))
+    return out
+
+
+def _meeting_share(a, b, work, tm, tn, chunk=128):
+    """The share of the worklist's 64-row x chunk-column sub-blocks whose
+    key ranges meet, as the kernel tests them."""
+    ra, rb = _group_ranges(a), _group_ranges(b)
+
+    def rng(r, row0, n):
+        g = r[row0 // 64:(row0 + n - 1) // 64 + 1]
+        return g[:, 0].min(), g[:, 1].max()
+
+    meet = total = 0
+    for a0, b0 in work.cpu().numpy():
+        for c0 in range(0, tn, chunk):
+            blo, bhi = rng(rb, b0 + c0, min(chunk, tn - c0))
+            for s0 in range(0, tm, 64):
+                alo, ahi = rng(ra, a0 + s0, 64)
+                total += 1
+                meet += bool(alo <= ahi and blo <= bhi and alo <= bhi
+                             and blo <= ahi)
+    return meet / total
 
 
 @pytest.mark.parametrize("tiles", [(128, 128), (64, 128), (128, 64),
                                    (768, 768)],
                          ids=["t128", "t64x128", "t128x64", "t768"])
-@pytest.mark.parametrize("lpad", [24, 48])
+@pytest.mark.parametrize("lpad", [24, 48, 200])
 def test_dense_onehot_kernel_equals_plain(cuda, lpad, tiles):
     """Every score mode at d = 2 and product at d = 0, 1, 3, on sets
     whose last real tile is ragged (2,000 and 2,500 rows), on tiles
-    whose rows and columns differ, and over every pad row: the kernel
-    equals its plain version and dense_match."""
+    whose rows and columns differ (tile_n 64: a ragged 64-column b
+    chunk), over every pad row (all-pad slices and chunks), on rows
+    keyed by V, J and length (key changes inside 64-row slices; at tile
+    768 most sub-blocks skipped), by length alone (-g) and shuffled;
+    amino acids at lpad 24, nucleotides at 48 and 200 (K past one a
+    stage, narrow b chunks): the kernel equals its plain version and
+    dense_match, one launch a call."""
     import torch
 
     from compairr_tpu_torch.ops import kernels as K
@@ -690,30 +742,64 @@ def test_dense_onehot_kernel_equals_plain(cuda, lpad, tiles):
     d1, d2 = _planted_pair(lpad)
     d1, d2 = _counted(d1, 7), _counted(d2, 8)
     tm, tn = tiles
-    a, b, works = _onehot_inputs(d1, d2, cuda, tm, tn)
-    assert a["seqs"].shape[1] == lpad
     cases = [(m, 2) for m in (K.SC_ONE, K.SC_PRODUCT, K.SC_MIN, K.SC_MAX,
                               K.SC_SUM)]
     cases += [(K.SC_PRODUCT, d) for d in (0, 1, 3)]
-    for work in works:
-        for mode, d in cases:
-            kw = dict(differences=d, score_mode=mode, tile_m=tm, tile_n=tn,
-                      r1p=8, r2p=128)
-            before = K.LAUNCHES["dense_onehot"]
-            got = K.dense_onehot(a, b, work, **kw)
-            assert K.LAUNCHES["dense_onehot"] == before + 1
-            want = K.dense_onehot_plain(a, b, work, **kw)
-            ref = K.dense_match_plain(a, b, work, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (mode, d, tiles, lpad)
-            assert torch.equal(got, ref), (mode, d, tiles, lpad)
-            # every planted pair carries an edit: no match at d = 0
-            assert (int(want.sum()) > 0) == (d > 0)
+    for rows in ("vjl", "g", "shuffled"):
+        a, b, works = _onehot_inputs(d1, d2, cuda, tm, tn,
+                                     by_vjl=rows != "g",
+                                     shuffle=rows == "shuffled")
+        assert a["seqs"].shape[1] == lpad
+        if rows == "vjl":
+            ra = _group_ranges(a)
+            assert (ra[:, 0] < ra[:, 1]).any()  # keys change in a slice
+            assert (ra[:, 0] > ra[:, 1]).any()  # all-pad slices
+            if tiles == (768, 768) and lpad == 24:
+                assert _meeting_share(a, b, works[0], tm, tn) < 0.5
+        for work in works:
+            for mode, d in cases if rows == "vjl" else cases[1:2]:
+                kw = dict(differences=d, score_mode=mode, tile_m=tm,
+                          tile_n=tn, r1p=8, r2p=128)
+                before = K.LAUNCHES["dense_onehot"]
+                got = K.dense_onehot(a, b, work, **kw)
+                assert K.LAUNCHES["dense_onehot"] == before + 1
+                want = K.dense_onehot_plain(a, b, work, **kw)
+                ref = K.dense_match_plain(a, b, work, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (rows, mode, d, tiles, lpad)
+                assert torch.equal(got, ref), (rows, mode, d, tiles, lpad)
+                # every planted pair carries an edit: no match at d = 0
+                assert (int(want.sum()) > 0) == (d > 0)
+
+
+def test_dense_onehot_launch_refuses_bad_shapes(cuda):
+    """The kernel's C entry refuses tiles that are not multiples of 64
+    and an lpad that is not a multiple of 4, launching nothing."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    a, b, works = _onehot_inputs(d1, d2, cuda, 128, 128)
+    out = torch.zeros((8, 128), dtype=torch.int64, device=cuda)
+    lib = K.load_library("dense_onehot")
+    for tm, tn, lpad in ((96, 128, 24), (128, 32, 24), (0, 128, 24),
+                         (128, 128, 22)):
+        err = lib.dense_onehot_launch(
+            a["seqs"].data_ptr(), a["key32"].data_ptr(), a["rep"].data_ptr(),
+            a["cnt"].data_ptr(), b["seqs"].data_ptr(),
+            b["key32"].data_ptr(), b["rep"].data_ptr(), b["cnt"].data_ptr(),
+            works[0].data_ptr(), works[0].shape[0], a["seqs"].shape[0],
+            b["seqs"].shape[0], tm, tn, lpad, 2, K.SC_PRODUCT, 128,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (tm, tn, lpad)
+    torch.cuda.synchronize()
+    assert int(out.sum()) == 0
 
 
 def test_dense_onehot_smem_fits_any_lpad(cuda):
     """The kernel's shared memory stays within a block's at any lpad
-    (K chunks of 512 lanes)."""
+    (a stages of at most 512 lanes, b chunks narrowing as K grows)."""
     from compairr_tpu_torch.ops import kernels as K
 
     lib = K.load_library("dense_onehot")

@@ -10,7 +10,8 @@ dense_onehot (csrc/dense_onehot.cu, an int8 one-hot product), on the CPU:
     formulation step by step) against dense_match_plain on the same
     derived rows and worklists, in every score mode, at lpad 24 and 48,
     on tiles of 64 and 128 rows and on tiles whose rows and columns
-    differ, over worklists that cover every pad row;
+    differ, over worklists that cover every pad row, on rows in key
+    order and shuffled;
   * the kernel choice: COMPAIRR_V3 moves only dense_match's runs.
 
 Every sum is an integer (mean: half-integer), so equality is exact.
@@ -206,17 +207,23 @@ SC_MODES = [K.SC_ONE, K.SC_PRODUCT, K.SC_MIN, K.SC_MAX, K.SC_SUM]
 SC_IDS = ["one", "product", "min", "max", "sum"]
 
 
-@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128)],
-                         ids=["t64", "t128", "t64x128"])
-@pytest.mark.parametrize("mode", SC_MODES, ids=SC_IDS)
-def test_dense_onehot_plain_equals_dense_match_plain(planted, tiles, mode):
-    """The two plain versions on the worklist from the keys (its last
-    row and column blocks hold real rows and pad rows) and on every
-    tile pair of both padded row sets (all-pad tiles included)."""
+def _shuffled(side, seed):
+    """The rows of a device_args_raw dict in a random order (pads no
+    longer last, every tile's keys mixed): the wrapper takes rows in
+    any order."""
+    perm = torch.from_numpy(
+        np.random.default_rng(seed).permutation(side["rep"].shape[0]))
+    return dict(side, **{k: side[k][perm].contiguous()
+                         for k in ("seqs", "key32", "rep", "cnt")})
+
+
+def _plain_pair_check(planted, tiles, mode, shuffle):
     d1, d2 = planted
     tm, tn = tiles
     a, ka = _rows(d1, tm)
     b, kb = _rows(d2, tn)
+    if shuffle:
+        a, b = _shuffled(a, 1), _shuffled(b, 2)
     assert a["seqs"].shape[1] in (24, 48)
     na, nb = a["seqs"].shape[0], b["seqs"].shape[0]
     assert na > d1.n and nb > d2.n
@@ -237,6 +244,28 @@ def test_dense_onehot_plain_equals_dense_match_plain(planted, tiles, mode):
         assert int(want.sum()) > 0
 
 
+TILES = pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (64, 128)],
+                                ids=["t64", "t128", "t64x128"])
+
+
+@TILES
+@pytest.mark.parametrize("mode", SC_MODES, ids=SC_IDS)
+def test_dense_onehot_plain_equals_dense_match_plain(planted, tiles, mode):
+    """The two plain versions on the worklist from the keys (its last
+    row and column blocks hold real rows and pad rows) and on every
+    tile pair of both padded row sets (all-pad tiles included)."""
+    _plain_pair_check(planted, tiles, mode, shuffle=False)
+
+
+@TILES
+@pytest.mark.parametrize("mode", SC_MODES, ids=SC_IDS)
+def test_dense_onehot_plain_shuffled_equals_dense_match_plain(planted, tiles,
+                                                              mode):
+    """The same on rows in a random order (pads no longer last, every
+    tile's keys mixed): the wrapper takes rows in any order."""
+    _plain_pair_check(planted, tiles, mode, shuffle=True)
+
+
 def test_onehot_rows_layout():
     """Feature (c, p) at lane c * lpad + p, zero lanes up to K."""
     seqs = torch.tensor([[0, 20, 3, 3], [19, 1, 20, 20]], dtype=torch.int8)
@@ -254,7 +283,7 @@ def test_onehot_rows_layout():
 
 
 @pytest.mark.parametrize("bad", ["tile", "ratio", "key_dtype", "code",
-                                 "outside"])
+                                 "outside", "rep_dtype", "rep_shape"])
 def test_dense_onehot_rejects_bad_inputs(planted, bad):
     d1, d2 = planted
     a, ka = _rows(d1, 64)
@@ -270,6 +299,11 @@ def test_dense_onehot_rejects_bad_inputs(planted, bad):
         kw.update(score_mode=K.SC_RATIO)
     elif bad == "key_dtype":
         b = dict(b, key32=b["key32"].to(torch.int64))
+    elif bad == "rep_dtype":
+        # the kernel reads rep beside key32 (its key ranges, the cells)
+        b = dict(b, rep=b["rep"].to(torch.int64))
+    elif bad == "rep_shape":
+        b = dict(b, rep=b["rep"][:-1])
     elif bad == "code":
         # a residue code past the 21 one-hot classes: the device check
         seqs = b["seqs"].clone()
@@ -306,3 +340,4 @@ def test_dense_kind_boundaries_with_v3(monkeypatch):
                   dict(key_max=1 << 31)):
         assert kind(**dict(base, **other)) == "dense_general"
         assert kind(**dict(base, indels=True, **other)) == "dense_general"
+
