@@ -122,7 +122,24 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      must equal, cell for cell, the matrix of phase 19's tile-route
      pairs of the same run (indel pairs among the -d 1 -i ones), and
      launch its kernel once;
- 21. prints the card line, one JSON line listing every kernel, and as
+ 21. multi-device (parallel/mesh.py and the tile route's device split)
+     over the local cards in turn (on one card every shard shares
+     cuda:0, and the two ranks share it over gloo): the kernel
+     workload's dense_matrix_sharded over 1, 2 and 4 shards (sum
+     24,865,230, equal to dense_matrix cell for cell, each shard with
+     work launching dense_match once), again over 2 and 4 under
+     COMPAIRR_V3=0 (dense_onehot), and dense_matrix_ring over 4; the
+     indel workload's -d 1 -i matrices over 4 shards, product
+     (dense_indel) equal and ratio (dense_general, float64) within rtol
+     1e-12; find_pairs -d 1 -i over 4 devices, the pairs equal to one
+     device's, count_tiles launched once per class stream and device
+     span; two processes on torch.distributed (2 shards each)
+     whose sharded and ring matrices of the kernel workload reproduce
+     24,865,230, and graft_entry.dryrun_multichip(4) (sum 238). Prints
+     the walls of 1, 2 and 4 shards and of each rank, LAST_STATS
+     (pad_fraction, allreduce_s, backend) and each shard's kernel time:
+     on one card overheads of the split, not scaling;
+ 22. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -1453,6 +1470,95 @@ def tile_route_timing(a, b, spec, label):
             "extract_bound": eb, "extract_floor": ef}, got[:2]
 
 
+def kernel_case():
+    """The kernel workload as the keyword arguments of a dense run, for
+    parallel.worker.launch's CASE: every rank makes the same sets from
+    the seeds."""
+    from compairr_tpu_torch.ops.engine import MatchSpec
+
+    d1, d2 = workload(N_ROWS)
+    return dict(db1=d1, db2=d2, spec=MatchSpec(DIFFERENCES, False, False),
+                score_int=SCORE_PRODUCT, ignore_counts=False, tile_m=TILE,
+                tile_n=TILE)
+
+
+def cold_main(label, n):
+    """One dense run of the kernel workload (or, label "-g", its keys by
+    length) in this fresh process, as a CLI run makes it: engine.
+    dense_matrix on cuda:0 (n 1) or mesh.dense_matrix_sharded over
+    cuda:0 .. cuda:n-1, each card but cuda:0 first touched inside the
+    run. Prints its wall, shards and matrix sum as JSON."""
+    import torch
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.parallel import mesh
+
+    kw = kernel_case()
+    if label == "-g":
+        kw["spec"] = E.MatchSpec(DIFFERENCES, False, True)
+    torch.zeros(1, device="cuda:0")  # the process's CUDA start, paid alike
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if n == 1:
+        m = E.dense_matrix(**kw, device="cuda:0")
+        shards = 1
+    else:
+        m = mesh.dense_matrix_sharded(
+            **kw, devices=[torch.device("cuda", i) for i in range(n)])
+        shards = mesh.LAST_STATS["devices"]
+    print(json.dumps({"wall_s": time.perf_counter() - t0, "shards": shards,
+                      "sum": float(m.sum())}))
+
+
+def cold_wall(label, n):
+    """cold_main's result, from a process of its own."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.cold_main({label!r}, {n})"],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"cold run {label} {n}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def launch_ms(fn, kernel):
+    """Device milliseconds of each launch of the CUDA kernels whose name
+    holds `kernel` in one call of fn(), in launch order, from
+    torch.profiler; [] when it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name),
+                 key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in evs]
+
+
+def count_spans(d1, d2, spec, n_dev):
+    """count_tiles launches that find_pairs makes over n_dev devices: one
+    per class stream and device span (engine.TILES_PER_DEVICE_MIN tiles
+    at least a span), from the same host worklist and classes."""
+    from compairr_tpu_torch.ops import engine as E
+
+    tile, _, _, by_vjl, indels = E._pair_plan(d1, d2, spec, "cuda")
+    oa, ka, _ = E.pack_keys(d1, tile, by_vjl)
+    _, kb, _ = E.pack_keys(d2, tile, by_vjl)
+    work = E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
+    eq, pm = E.classify_worklist(work, ka, d1.n, kb, d2.n, tile, tile)
+    masks = [eq & ~pm, eq & pm, ~eq & pm] if indels else [eq]
+    sizes = [int(m.sum()) for m in masks if m.any()]
+    tpd = E.TILES_PER_DEVICE_MIN
+    nd = max(1, min(n_dev, sum(sizes) // tpd))
+    return sum(max(1, min(nd, sz // tpd)) for sz in sizes), sizes
+
+
 def main(argv) -> int:
     import torch
 
@@ -2345,6 +2451,229 @@ def main(argv) -> int:
 
     report["join_g"] = phase("20 dense indel/general under -g vs tile route",
                              p20)
+
+    def p21():
+        from compairr_tpu_torch.constants import SCORE_RATIO
+        from compairr_tpu_torch.graft_entry import dryrun_multichip
+        from compairr_tpu_torch.parallel import mesh, worker
+
+        from compairr_tpu_torch.utils.device import local_devices
+
+        local = local_devices(DEVICE)  # one card: every shard on cuda:0
+
+        def devs(n):
+            return [local[i % len(local)] for i in range(n)]
+
+        spec_d2 = E.MatchSpec(differences=DIFFERENCES, indels=False,
+                              ignore_genes=False)
+        res = {"walls_s": {}, "stats": {}}
+
+        def multi(a, b, spec, score, kernel, n, ring=False, **tkw):
+            """One run over n shards (devs(n)) with every count set to 0
+            just before: (matrix, wall, launches of kernel, LAST_STATS);
+            no other kernel may launch, and each shard with work (each
+            step of a shard, on the ring) launches `kernel` once."""
+            run = mesh.dense_matrix_ring if ring else mesh.dense_matrix_sharded
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            m = run(a, b, spec, score, False, devices=devs(n), **tkw)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            stats = dict(mesh.LAST_STATS)
+            others = {k: v for k, v in launches.items() if k != kernel and v}
+            want = (None if ring
+                    else sum(1 for t in stats["real_tiles"] if t))
+            if others or launches[kernel] < 1 or (
+                    want is not None and launches[kernel] != want):
+                raise AssertionError(f"{n} shards: launches {launches}, "
+                                     f"{want} shards with work")
+            return m, wall, launches[kernel], stats
+
+        def check(label, m, want, rtol=0.0):
+            same = (np.array_equal(m, want) if rtol == 0
+                    else np.allclose(m, want, rtol=rtol, atol=0))
+            if not same or want.sum() == 0:
+                raise AssertionError(f"{label}: differs from one device's")
+
+        tkw = {"tile_m": TILE, "tile_n": TILE}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = E.dense_matrix(d1, d2, spec_d2, SCORE_PRODUCT, False,
+                                device=DEVICE, **tkw)
+        res["walls_s"]["dense_matrix"] = [time.perf_counter() - t0]
+        if single.sum() != KERNEL_CHECKSUM:
+            raise AssertionError(f"single sum {single.sum()}")
+        for turn in range(2):  # in turns: 1, 2, 4 shards, twice
+            for n in (1, 2, 4):
+                m, wall, launches, stats = multi(d1, d2, spec_d2,
+                                                 SCORE_PRODUCT,
+                                                 "dense_match", n, **tkw)
+                check(f"dense_match, {n} shards", m, single)
+                res["walls_s"].setdefault(f"sharded {n}", []).append(wall)
+                res["stats"][f"sharded {n}"] = stats
+                res.setdefault("launches", {})[f"dense_match {n}"] = launches
+        for n in (1, 2, 4):
+            st = res["stats"][f"sharded {n}"]
+            print(f"  kernel workload, dense_matrix_sharded over {n} shards "
+                  f"on {sorted(set(map(str, devs(n))))}: sum "
+                  f"{KERNEL_CHECKSUM}, equal to dense_matrix; "
+                  f"walls {res['walls_s'][f'sharded {n}']} s (dense_matrix "
+                  f"{res['walls_s']['dense_matrix'][0]:.6f} s); tiles "
+                  f"{st['real_tiles']}, pad_fraction {st['pad_fraction']:.6f}"
+                  f", pack {st['pack_s']:.6f} s, shard {st['shard_s']:.6f} s,"
+                  f" put {st['put_s']:.6f} s, compute {st['compute_s']:.6f} "
+                  f"s, allreduce_s {st['allreduce_s']:.6f}, backend "
+                  f"{st['backend']}")
+        # -g: keys by length alone, a worklist long enough to split; and
+        # the default device choice (devices=None: rank_devices(), no
+        # more shards than DENSE_TILES_PER_SHARD_MIN tiles each), as the
+        # CLI's dense engine takes it
+        spec_g = E.MatchSpec(differences=DIFFERENCES, indels=False,
+                             ignore_genes=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_g = E.dense_matrix(d1, d2, spec_g, SCORE_PRODUCT, False,
+                                  device=DEVICE, **tkw)
+        res["walls_s"]["dense_matrix -g"] = [time.perf_counter() - t0]
+        for turn in range(2):
+            for n in (1, 2, 4):
+                m, wall, _, stats = multi(d1, d2, spec_g, SCORE_PRODUCT,
+                                          "dense_match", n, **tkw)
+                check(f"-g dense_match, {n} shards", m, single_g)
+                res["walls_s"].setdefault(f"sharded {n} -g", []).append(wall)
+                res["stats"][f"sharded {n} -g"] = stats
+        for n in (1, 2, 4):
+            st = res["stats"][f"sharded {n} -g"]
+            print(f"  -g workload, dense_matrix_sharded over {n} shards on "
+                  f"{sorted(set(map(str, devs(n))))}: equal to dense_matrix;"
+                  f" walls {res['walls_s'][f'sharded {n} -g']} s "
+                  f"(dense_matrix {res['walls_s']['dense_matrix -g'][0]:.6f}"
+                  f" s); tiles {st['real_tiles']}, put {st['put_s']:.6f} s, "
+                  f"compute {st['compute_s']:.6f} s")
+        for label, spec, want in (("kernel", spec_d2, single),
+                                  ("-g", spec_g, single_g)):
+            t0 = time.perf_counter()
+            m = mesh.dense_matrix_sharded(d1, d2, spec, SCORE_PRODUCT, False,
+                                          **tkw)
+            wall = time.perf_counter() - t0
+            check(f"{label} workload, default devices", m, want)
+            st = dict(mesh.LAST_STATS)
+            res["stats"][f"default {label}"] = dict(st, wall_s=wall)
+            print(f"  {label} workload, default devices ({len(local)} "
+                  f"card(s), {sum(st['real_tiles'])} tiles, at least "
+                  f"{mesh.DENSE_TILES_PER_SHARD_MIN} a shard): "
+                  f"{st['devices']} shard(s), equal; {wall:.6f} s")
+
+        # a one-shot process on one card and on every card, as the CLI
+        # runs: the other cards' first use is part of the wall
+        if len(local) > 1:
+            for label, want in (("kernel", single), ("-g", single_g)):
+                for n in (1, len(local), 1, len(local)):
+                    cold = cold_wall(label, n)
+                    if cold["sum"] != want.sum():
+                        raise AssertionError(f"cold {label} {n}: {cold}")
+                    res.setdefault("cold", {}).setdefault(
+                        f"{label} {n}", []).append(cold)
+                print(f"  {label} workload, a fresh process a run (walls, "
+                      f"s): one card "
+                      f"{[c['wall_s'] for c in res['cold'][f'{label} 1']]}"
+                      f", {len(local)} cards "
+                      f"{[c['wall_s'] for c in res['cold'][f'{label} {len(local)}']]}"
+                      f" ({res['cold'][f'{label} {len(local)}'][0]['shards']}"
+                      f" shard(s))")
+
+        shard_ms = launch_ms(
+            lambda: mesh.dense_matrix_sharded(d1, d2, spec_d2, SCORE_PRODUCT,
+                                              False, devices=devs(4),
+                                              **tkw),
+            "dense_match_kernel")
+        res["shard_kernel_ms"] = shard_ms
+        print(f"  each shard's dense_match kernel, 4 shards (torch.profiler):"
+              f" {[round(x, 4) for x in shard_ms]} ms")
+
+        with env(COMPAIRR_V3="0"):
+            for n in (2, 4):
+                m, wall, launches, stats = multi(d1, d2, spec_d2,
+                                                 SCORE_PRODUCT,
+                                                 "dense_onehot", n, **tkw)
+                check(f"dense_onehot, {n} shards", m, single)
+                res["walls_s"][f"sharded {n}, COMPAIRR_V3=0"] = [wall]
+                print(f"  COMPAIRR_V3=0 over {n} shards: sum "
+                      f"{m.sum():.0f}, equal; {launches} dense_onehot "
+                      f"launches, {wall:.6f} s")
+
+        m, wall, launches, stats = multi(d1, d2, spec_d2, SCORE_PRODUCT,
+                                         "dense_match", 4, ring=True, **tkw)
+        check("ring, 4 shards", m, single)
+        res["walls_s"]["ring 4"] = [wall]
+        res["stats"]["ring 4"] = stats
+        print(f"  dense_matrix_ring over 4 shards: sum {m.sum():.0f}, equal; "
+              f"{launches} dense_match launches, {wall:.6f} s (hand-offs "
+              f"{stats['handoff_s']:.6f} s)")
+
+        for score, kernel, rtol in ((SCORE_PRODUCT, "dense_indel", 0.0),
+                                    (SCORE_RATIO, "dense_general", 1e-12)):
+            want = E.dense_matrix(d1, d2i, spec_i, score, False,
+                                  device=DEVICE)
+            m, wall, launches, stats = multi(d1, d2i, spec_i, score, kernel,
+                                             4)
+            check(f"{kernel}, 4 shards", m, want, rtol)
+            err = float(np.max(np.abs(m - want) / np.maximum(np.abs(want),
+                                                              1e-300)))
+            res[f"indel workload {kernel}"] = {
+                "wall_s": wall, "launches": launches, "max_rel_err": err,
+                "pad_fraction": stats["pad_fraction"]}
+            print(f"  indel workload -d 1 -i, {kernel} over 4 shards: sum "
+                  f"{m.sum()}, largest relative difference {err:.3g} "
+                  f"(limit {rtol}); {launches} launches, {wall:.6f} s")
+
+        want_launches, sizes = count_spans(d1, d2i, spec_i, 4)
+        one = E.find_pairs(d1, d2i, spec_i, devices=devs(1), want_dist=False)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = E.find_pairs(d1, d2i, spec_i, devices=devs(4),
+                           want_dist=False)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        if E.LAST_ROUTE != "tiles" or not pairs_equal(got, one):
+            raise AssertionError("find_pairs over 4 devices differs")
+        if launches["count_tiles"] != want_launches:
+            raise AssertionError(f"count_tiles launches {launches}, want "
+                                 f"{want_launches} (streams {sizes})")
+        res["tile_split"] = {"pairs": len(one[0]), "wall_s": wall,
+                             "launches": launches, "streams": sizes}
+        print(f"  find_pairs -d 1 -i over 4 devices: {len(one[0])} pairs, "
+              f"equal to one device's; count_tiles {launches['count_tiles']}"
+              f" launches (streams {sizes}), extract_tiles "
+              f"{launches['extract_tiles']}; {wall:.6f} s")
+
+        out_dir = os.path.join(HERE, "chiprun_out", "ranks")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        ranks = worker.launch(nproc=2, local_devices=2, device="cuda",
+                              timeout=600, case="chip_smoke:kernel_case",
+                              out_dir=out_dir)
+        res["ranks_wall_s"] = time.perf_counter() - t0
+        for r, (sh, ri) in ranks.items():
+            check(f"rank {r} sharded", sh, single)
+            check(f"rank {r} ring", ri, single)
+            with open(os.path.join(out_dir, f"stats_{r}.json")) as f:
+                st = json.load(f)
+            res["stats"][f"rank {r}"] = st
+            print(f"  rank {r} of 2 ({st['sharded']['backend']}, 2 shards "
+                  f"each, {len(local)} card(s)): sharded sum {sh.sum():.0f} in "
+                  f"{st['sharded']['wall_s']:.6f} s (allreduce_s "
+                  f"{st['sharded']['allreduce_s']:.6f}, pad_fraction "
+                  f"{st['sharded']['pad_fraction']:.6f}), ring sum "
+                  f"{ri.sum():.0f} in {st['ring']['wall_s']:.6f} s "
+                  f"(hand-offs {st['ring']['handoff_s']:.6f} s); both "
+                  f"equal to one device's")
+        dryrun_multichip(4, device="cuda")
+        return res
+
+    report["multi_device"] = phase("21 multi-device", p21)
 
     out_dir = os.path.join(HERE, "chiprun_out")
     try:

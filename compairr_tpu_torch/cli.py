@@ -439,7 +439,11 @@ def _fopen_output(filename: str) -> IO[str]:
     return open(filename, "w", encoding="latin-1", newline="")
 
 
-def main(argv: Optional[list[str]] = None) -> int:
+def main(argv: Optional[list[str]] = None, devices=None) -> int:
+    """Run the command line `argv` (by default sys.argv[1:]). `devices`
+    is the device routes' device list, as find_pairs and
+    dense_matrix_sharded take it (by default utils.device.local_devices,
+    and on the dense engine rank_devices)."""
     if argv is None:
         argv = sys.argv[1:]
 
@@ -453,16 +457,15 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     set_runtime_threads(opt.threads)
 
-    # multi-host runs (COMPAIRR_DISTRIBUTED) need the sharded device
-    # paths, which this package does not have yet
+    # multi-process initialisation (only when COMPAIRR_DISTRIBUTED asks
+    # for it): afterwards the dense engine's shards span every rank's
+    # devices. Gated on the env so host-only runs never import torch.
     import os as _os
 
     if _os.environ.get("COMPAIRR_DISTRIBUTED"):
-        raise NotImplementedError(
-            "COMPAIRR_DISTRIBUTED needs the multi-device paths "
-            "(compairr_tpu/parallel/mesh.py initialize_distributed), "
-            "not ported yet"
-        )
+        from .parallel.mesh import initialize_distributed
+
+        initialize_distributed()
 
     # open files (compairr.cc:708-729)
     if opt.log:
@@ -514,7 +517,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         if opt.matrix or opt.existence:
             from .modes.overlap import overlap
 
-            overlap(opt, logger, outfile, pairsfile)
+            overlap(opt, logger, outfile, pairsfile, devices=devices)
         elif opt.deduplicate:
             from .modes.dedup import dedup
 
@@ -522,7 +525,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         else:
             from .modes.cluster import cluster
 
-            cluster(opt, logger, outfile)
+            cluster(opt, logger, outfile, devices=devices)
 
     logger.show_time("End time:          ")
 

@@ -29,7 +29,8 @@ from ..io.airr import read_db
 from ..utils.progress import Logger
 
 
-def cluster(opt: Options, logger: Logger, outfile: IO[str]) -> None:
+def cluster(opt: Options, logger: Logger, outfile: IO[str],
+            devices=None) -> None:
     from ..ops.engine import MatchSpec, find_pairs
 
     logger.write("Immune receptor repertoire clustering\n\n")
@@ -62,7 +63,8 @@ def cluster(opt: Options, logger: Logger, outfile: IO[str]) -> None:
         # approximate matching never reads the parse-time row hashes
         d.drop_row_hash()
     idx1, idx2, _dist = find_pairs(
-        d, d, spec, logger, "Building network: ", want_dist=False
+        d, d, spec, logger, "Building network: ", want_dist=False,
+        devices=devices,
     )
 
     # per-seed adjacency in canonical variant order (the order the

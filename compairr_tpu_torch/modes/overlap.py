@@ -142,6 +142,7 @@ def overlap(
     logger: Logger,
     outfile: IO[str],
     pairsfile: Optional[IO[str]] = None,
+    devices=None,
 ) -> None:
     from ..ops.engine import MatchSpec, _PhaseTimer, find_pairs
 
@@ -234,6 +235,7 @@ def overlap(
         prefetch_find_pairs(
             d1, d2, spec,
             want_dist=pairsfile is not None and opt.distance,
+            devices=devices,
         )
     tm.lap("prefetch")
 
@@ -327,11 +329,14 @@ def overlap(
     if pairsfile is not None:
         _write_pairs_header(opt, pairsfile)
 
-    # COMPAIRR_ENGINE=dense routes matrix runs through the dense engine
-    # (engine.dense_matrix: the dense_match, dense_indel or
-    # dense_general CUDA kernel, int64 sums, exact in any order). Pairs
-    # files and existence mode need the matched pair list and stay on
-    # the sparse path by construction.
+    # COMPAIRR_ENGINE=dense routes matrix runs through the dense engine:
+    # one device -> engine.dense_matrix (the dense_match, dense_onehot,
+    # dense_indel or dense_general CUDA kernel, int64 sums, exact in any
+    # order), several devices or ranks -> parallel/mesh.py
+    # dense_matrix_sharded (the same kernel a shard, partial sums merged
+    # by all_reduce; on the local devices it picks itself, no more shards
+    # than the worklist keeps busy). Pairs files and existence mode need
+    # the matched pair list and stay on the sparse path by construction.
     if use_dense and (
         not opt.matrix or pairsfile is not None or opt.no_matrix
     ):
@@ -343,25 +348,29 @@ def overlap(
     matrix: Optional[np.ndarray] = None
     if use_dense:
         from ..ops.engine import dense_matrix
-        from ..utils.device import device_count
+        from ..parallel import mesh
 
-        if device_count() > 1:
-            raise NotImplementedError(
-                "dense runs over more than one device need the sharded "
-                "dense paths (compairr_tpu/parallel/mesh.py "
-                "dense_matrix_sharded), not ported yet; set "
-                "COMPAIRR_DEVICES=1 to run on one device"
+        devs = mesh.rank_devices() if devices is None else devices
+        if len(devs) > 1 or mesh.world()[0] > 1:
+            logger.progress_init("Analysing:        ", 1)
+            matrix = mesh.dense_matrix_sharded(
+                d1, d2, spec, opt.score_int, opt.ignore_counts,
+                devices=devices,
             )
-        matrix = dense_matrix(
-            d1, d2, spec, opt.score_int, opt.ignore_counts,
-            logger, "Analysing:        ",
-        )
+            logger.progress_update(1)
+            logger.progress_done()
+        else:
+            matrix = dense_matrix(
+                d1, d2, spec, opt.score_int, opt.ignore_counts,
+                logger, "Analysing:        ", device=devs[0],
+            )
     else:
         tm.lap("dup_phase")
         idx1, idx2, dist = find_pairs(
             d1, d2, spec, logger, "Analysing:        ",
             exact_groups=exact_groups, vj_prep=vj_prep,
             want_dist=pairsfile is not None and opt.distance,
+            devices=devices,
         )
 
         # reference single-thread emission order (seed-major, variant

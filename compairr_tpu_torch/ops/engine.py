@@ -24,9 +24,10 @@ two device routes then run hand-written CUDA kernels (ops/kernels.py):
     one-indel run (-d 1 -i), every run under COMPAIRR_PIGEONHOLE=0 and
     every pigeonhole candidate-budget overflow.
 
-Not ported yet, and raising NotImplementedError where a run needs
-them: the multi-device paths (the dense parallel/mesh.py paths and the
-tile route's worklist split across devices).
+Over several devices the tile route splits every class stream of its
+worklist into contiguous spans, one a device, each device holding a
+replica of both sets' rows; the dense engine's shards (parallel/mesh.py)
+run dense_plan and dense_side once, and side_span / dense_span a shard.
 
 This module imports no torch: host-only routes never load it.
 """
@@ -387,6 +388,196 @@ def _pair_distances(
     return dist
 
 
+@dataclass(frozen=True)
+class DensePlan:
+    """What every shard of a dense run shares, decided once on the host
+    (dense_plan): both sets' key sort (pack_keys' order, padded sorted
+    keys and padded row count), the kernel (kernels._dense_kernel_kind
+    from the largest count and key of both sets), the key width (wide
+    rows for dense_general) and the sum type (float_out: float64 for
+    ratio and where a cell of the whole run could reach 2^62, which
+    bounds every partial sum too; else int64). work is the whole run's
+    column-major worklist."""
+
+    spec: MatchSpec
+    score_int: int
+    ignore_counts: bool
+    tile_m: int
+    tile_n: int
+    lpad: int
+    r1: int
+    r2: int
+    r1p: int
+    r2p: int
+    indels: bool
+    kind: str
+    float_out: bool
+    shared: bool
+    order_a: np.ndarray
+    key_a: np.ndarray
+    npad_a: int
+    order_b: np.ndarray
+    key_b: np.ndarray
+    npad_b: int
+    work: np.ndarray
+
+
+@dataclass(frozen=True)
+class DenseSide:
+    """One side of a dense kernel call: its rows on a device
+    (kernels.device_args_raw), and the padded sorted keys and real row
+    count on the host that its worklists read."""
+
+    rows: dict
+    key: np.ndarray
+    n: int
+
+
+def dense_plan(db1: SeqDB, db2: SeqDB, spec: MatchSpec, score_int: int,
+               ignore_counts: bool, tile_m: int = TILE_M,
+               tile_n: int = TILE_N) -> DensePlan:
+    """The host plan of a dense run (DensePlan), for one device or for
+    every shard of a multi-device one."""
+    if spec.exclude_self:
+        # the dense kernels do not implement self-exclusion (only the
+        # sparse extraction carries per-row original indices)
+        raise ValueError(
+            "dense paths do not support exclude_self specs; use "
+            "find_pairs (the sparse engine) for cluster-style matching"
+        )
+    from . import kernels as K
+
+    by_vjl = not spec.ignore_genes
+    use_indels = spec.indels and spec.differences == 1
+    shared = db2 is db1 and tile_m == tile_n
+    order_a, key_a, npad_a = pack_keys(db1, tile_m, by_vjl)
+    if shared:
+        order_b, key_b, npad_b = order_a, key_a, npad_a
+    else:
+        order_b, key_b, npad_b = pack_keys(db2, tile_n, by_vjl)
+    cmax = max(
+        float(db1.counts.max()) if db1.n else 0.0,
+        float(db2.counts.max()) if db2.n else 0.0,
+    )
+    kmax = max(
+        int(key_a[: db1.n].max()) if db1.n else 0,
+        int(key_b[: db2.n].max()) if db2.n else 0,
+    )
+    kind = K._dense_kernel_kind(
+        indels=use_indels, score_int=score_int,
+        ignore_counts=ignore_counts, cmax=cmax, key_max=kmax,
+    )
+    work = order_colmajor(
+        worklist_from_keys(key_a, db1.n, key_b, db2.n, int(use_indels),
+                           tile_m, tile_n)
+    )
+    float_out = kind == "dense_general" and _cell_bound(
+        work,
+        _block_rep_stats(
+            db1.rep_no[order_a], db1.counts[order_a], db1.n, tile_m,
+            npad_a // tile_m, max(db1.repertoire_count, 1),
+        ),
+        _block_rep_stats(
+            db2.rep_no[order_b], db2.counts[order_b], db2.n, tile_n,
+            npad_b // tile_n, max(db2.repertoire_count, 1),
+        ),
+        tile_m, tile_n, score_int, ignore_counts,
+    ) >= INT64_EXACT_LIMIT
+    return DensePlan(
+        spec=spec, score_int=score_int, ignore_counts=ignore_counts,
+        tile_m=tile_m, tile_n=tile_n,
+        lpad=_round_up(int(max(db1.longest, db2.longest, 1)), 8),
+        r1=db1.repertoire_count, r2=db2.repertoire_count,
+        r1p=_round_up(max(db1.repertoire_count, 1), 8),
+        r2p=_round_up(max(db2.repertoire_count, 1), 128),
+        indels=use_indels, kind=kind, float_out=float_out, shared=shared,
+        order_a=order_a, key_a=key_a, npad_a=npad_a,
+        order_b=order_b, key_b=key_b, npad_b=npad_b, work=work,
+    )
+
+
+def dense_side(plan: DensePlan, db: SeqDB, order: np.ndarray,
+               key: np.ndarray, npad: int, dev) -> DenseSide:
+    """db's rows in pack_keys' order (`order`; `key` its sorted keys,
+    padded to npad) on dev, in the layout plan.kind reads: wide rows for
+    dense_general, reversed rows with the indel, residue planes for
+    dense_match and, on CUDA, for dense_indel and dense_general, whose
+    int8 rows are then dropped."""
+    from . import kernels as K
+
+    planes_only = dev.type == "cuda" and plan.kind in ("dense_indel",
+                                                       "dense_general")
+    rows = K.device_args_raw(
+        db, order, npad, plan.lpad, key, dev, indels=plan.indels,
+        wide=plan.kind == "dense_general",
+        planes=plan.kind == "dense_match" or planes_only,
+    )
+    if planes_only:
+        del rows["seqs"]
+        rows.pop("rseqs", None)
+    return DenseSide(rows, key, db.n)
+
+
+def side_span(side: DenseSide, lo: int, hi: int, npad: int,
+              dev) -> DenseSide:
+    """Rows lo..hi-1 of a derived side (a shard's span of its set), then
+    copies of its first pad row up to npad rows, on dev: the side that
+    dense_side would derive from the span alone, cut on the device
+    instead of gathered and derived again on the host. The whole side
+    itself when the span is all of it, on its device."""
+    import torch
+
+    src = side.rows["rep"].device
+    if lo == 0 and hi == side.n and dev == src:
+        return side
+    n = hi - lo
+    idx = torch.full((npad,), side.n, dtype=torch.int64, device=src)
+    idx[:n] = torch.arange(lo, hi, device=src)
+    key = np.full(npad, _KEY_PAD, dtype=np.int64)
+    key[:n] = side.key[lo:hi]
+    return DenseSide(
+        {k: t.index_select(0, idx).to(dev) for k, t in side.rows.items()},
+        key, n,
+    )
+
+
+def dense_span(plan: DensePlan, a: DenseSide, b: DenseSide,
+               work: Optional[np.ndarray] = None):
+    """The raw [r1p, r2p] sums (int64, or float64 under plan.float_out)
+    of plan.kind's kernel over the worklist of a against b (by default
+    worklist_from_keys of their keys, column-major; the rows of a, a
+    span of set 1, and of b on one device)."""
+    from . import kernels as K
+
+    if work is None:
+        work = order_colmajor(worklist_from_keys(
+            a.key, a.n, b.key, b.n, int(plan.indels), plan.tile_m,
+            plan.tile_n,
+        ))
+    dev = a.rows["rep"].device
+    kw = dict(differences=plan.spec.differences,
+              score_mode=K.score_mode(plan.score_int, plan.ignore_counts),
+              tile_m=plan.tile_m, tile_n=plan.tile_n, r1p=plan.r1p,
+              r2p=plan.r2p)
+    work_dev = K.upload_worklist(work, dev)
+    if plan.kind == "dense_general":
+        return K.dense_general(a.rows, b.rows, work_dev,
+                               indels=plan.indels,
+                               float_out=plan.float_out, **kw)
+    return getattr(K, plan.kind)(a.rows, b.rows, work_dev, **kw)
+
+
+def dense_result(plan: DensePlan, acc) -> np.ndarray:
+    """The float64 [R1, R2] matrix of a run's summed raw sums: mean sums
+    count_a + count_b and is halved here, once."""
+    from ..constants import SCORE_MEAN
+
+    out = acc.cpu().numpy()[: plan.r1, : plan.r2].astype(np.float64)
+    if plan.score_int == SCORE_MEAN and not plan.ignore_counts:
+        out *= 0.5
+    return out
+
+
 def dense_matrix(
     db1: SeqDB,
     db2: SeqDB,
@@ -411,103 +602,25 @@ def dense_matrix(
     keys k-1..k+1). Integer sums are int64, exact in any order (mean sums
     count_a + count_b and is halved here, once). dense_general sums in
     float64, the reference's type, for ratio and where a cell could
-    reach 2^62 (_cell_bound); otherwise in int64.
+    reach 2^62 (_cell_bound); otherwise in int64. The run is
+    dense_plan, dense_side and dense_span on one device;
+    parallel.mesh runs it over several.
 
     device: "cuda" (the default), "cpu" (the kernels' plain PyTorch
     versions), or None to read COMPAIRR_DEVICE; see utils.device."""
-    if spec.exclude_self:
-        # the dense kernels do not implement self-exclusion (only the
-        # sparse extraction carries per-row original indices)
-        raise ValueError(
-            "dense_matrix does not support exclude_self specs; use "
-            "find_pairs (the sparse engine) for cluster-style matching"
-        )
-    from ..constants import SCORE_MEAN
     from ..utils.device import resolve_device
-    from . import kernels as K
 
     dev = resolve_device(device)
-    by_vjl = not spec.ignore_genes
-    use_indels = spec.indels and spec.differences == 1
-    lmax = _round_up(int(max(db1.longest, db2.longest, 1)), 8)
-    r1p = _round_up(max(db1.repertoire_count, 1), 8)
-    r2p = _round_up(max(db2.repertoire_count, 1), 128)
-
-    shared = db2 is db1 and tile_m == tile_n
-    order_a, key_a, npad_a = pack_keys(db1, tile_m, by_vjl)
-    if shared:
-        order_b, key_b, npad_b = order_a, key_a, npad_a
-    else:
-        order_b, key_b, npad_b = pack_keys(db2, tile_n, by_vjl)
-    cmax = max(
-        float(db1.counts.max()) if db1.n else 0.0,
-        float(db2.counts.max()) if db2.n else 0.0,
-    )
-    kmax = max(
-        int(key_a[: db1.n].max()) if db1.n else 0,
-        int(key_b[: db2.n].max()) if db2.n else 0,
-    )
-    kind = K._dense_kernel_kind(
-        indels=use_indels, score_int=score_int,
-        ignore_counts=ignore_counts, cmax=cmax, key_max=kmax,
-    )
-    # the CUDA dense_indel and dense_general read only residue planes:
-    # their int8 rows are dropped once the planes are derived
-    planes_only = dev.type == "cuda" and kind in ("dense_indel",
-                                                  "dense_general")
-    rows = dict(indels=use_indels, wide=kind == "dense_general",
-                planes=kind == "dense_match" or planes_only)
-
-    def derive(db, order, npad, key):
-        side = K.device_args_raw(db, order, npad, lmax, key, dev, **rows)
-        if planes_only:
-            del side["seqs"]
-            side.pop("rseqs", None)
-        return side
-
-    da = derive(db1, order_a, npad_a, key_a)
-    db_dev = da if shared else derive(db2, order_b, npad_b, key_b)
-    work = order_colmajor(
-        worklist_from_keys(key_a, db1.n, key_b, db2.n, int(use_indels),
-                           tile_m, tile_n)
-    )
+    plan = dense_plan(db1, db2, spec, score_int, ignore_counts, tile_m,
+                      tile_n)
+    a = dense_side(plan, db1, plan.order_a, plan.key_a, plan.npad_a, dev)
+    b = a if plan.shared else dense_side(plan, db2, plan.order_b,
+                                         plan.key_b, plan.npad_b, dev)
     if logger is not None and progress_prompt is not None:
-        logger.progress_init(progress_prompt, max(len(work), 1))
-
-    kw = dict(differences=spec.differences,
-              score_mode=K.score_mode(score_int, ignore_counts),
-              tile_m=tile_m, tile_n=tile_n, r1p=r1p, r2p=r2p)
-    work_dev = K.upload_worklist(work, dev)
-    if kind == "dense_match":
-        acc = K.dense_match(da, db_dev, work_dev, **kw)
-    elif kind == "dense_onehot":
-        acc = K.dense_onehot(da, db_dev, work_dev, **kw)
-    elif kind == "dense_indel":
-        acc = K.dense_indel(da, db_dev, work_dev, **kw)
-    else:
-        bound = _cell_bound(
-            work,
-            _block_rep_stats(
-                db1.rep_no[order_a], db1.counts[order_a], db1.n, tile_m,
-                npad_a // tile_m, max(db1.repertoire_count, 1),
-            ),
-            _block_rep_stats(
-                db2.rep_no[order_b], db2.counts[order_b], db2.n, tile_n,
-                npad_b // tile_n, max(db2.repertoire_count, 1),
-            ),
-            tile_m, tile_n, score_int, ignore_counts,
-        )
-        acc = K.dense_general(
-            da, db_dev, work_dev, indels=use_indels,
-            float_out=bound >= INT64_EXACT_LIMIT, **kw,
-        )
-    out = acc.cpu().numpy()[: db1.repertoire_count, : db2.repertoire_count]
-    out = out.astype(np.float64)
-    if score_int == SCORE_MEAN and not ignore_counts:
-        out *= 0.5
-
+        logger.progress_init(progress_prompt, max(len(plan.work), 1))
+    out = dense_result(plan, dense_span(plan, a, b, plan.work))
     if logger is not None and progress_prompt is not None:
-        logger.progress_update(len(work))
+        logger.progress_update(len(plan.work))
         logger.progress_done()
     return out
 
@@ -594,7 +707,8 @@ _RESULT_PREFETCH: dict = {}
 
 
 def prefetch_find_pairs(db1: SeqDB, db2: SeqDB, spec: MatchSpec,
-                        want_dist: bool = False, device=None) -> None:
+                        want_dist: bool = False, device=None,
+                        devices=None) -> None:
     """Start an indel run's find_pairs on a worker thread, so that its
     tile route overlaps the CLI's host-side duplicate check. Runs that
     resolve on the host, and runs without indels, prefetch nothing. A
@@ -615,7 +729,7 @@ def prefetch_find_pairs(db1: SeqDB, db2: SeqDB, spec: MatchSpec,
     def run():
         try:
             holder[0] = find_pairs(db1, db2, spec, want_dist=want_dist,
-                                   device=dev)
+                                   device=dev, devices=devices)
         except Exception as e:  # re-raised by the joining call
             holder[1] = e
 
@@ -683,6 +797,23 @@ def variant_join_route(db1: SeqDB, db2: SeqDB, spec: MatchSpec) -> bool:
     )
 
 
+def replicate(sides: tuple, devs: list) -> list:
+    """sides (dicts of tensors) on each device of devs, in order (the JAX
+    package's _put_tree): a device that repeats shares one replica, a
+    tensor already on its device is not copied, and a side given twice
+    (a self-comparison's) stays one side."""
+    by_dev: dict = {}
+    for d in devs:
+        if d not in by_dev:
+            copies: dict = {}
+            for side in sides:
+                if id(side) not in copies:
+                    copies[id(side)] = {k: None if t is None else t.to(d)
+                                        for k, t in side.items()}
+            by_dev[d] = tuple(copies[id(side)] for side in sides)
+    return [by_dev[d] for d in devs]
+
+
 def find_pairs(
     db1: SeqDB,
     db2: SeqDB,
@@ -693,6 +824,7 @@ def find_pairs(
     vj_prep=None,
     want_dist: bool = True,
     device=None,
+    devices=None,
 ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """Sparse path: all matching pairs under the spec.
 
@@ -704,7 +836,13 @@ def find_pairs(
     pigeonhole. One-indel runs, runs under COMPAIRR_PIGEONHOLE=0 and
     candidate-budget overflows take the tile route on `device`: "cuda"
     (the default), "cpu" (the kernels' plain versions), or None to
-    read COMPAIRR_DEVICE; see utils.device. want_dist=False lets the
+    read COMPAIRR_DEVICE; see utils.device. The tile route spreads over
+    `devices` (a list, which may repeat a device; by default
+    utils.device.local_devices of `device`): each class stream of the
+    worklist is cut into contiguous spans of at least
+    TILES_PER_DEVICE_MIN tiles, one a device, whose counts join in span
+    order, and extraction slabs go round the devices, so the pair list
+    is the same for any device count. want_dist=False lets the
     tile route skip the host distance recompute (dist is then None);
     only the pairs file with --distance reads it.
     """
@@ -789,10 +927,14 @@ def find_pairs(
             return with_diagonal(*ph)
 
     _note_route("tiles")
-    from ..utils.device import device_count, resolve_device
+    from ..utils.device import local_devices, resolve_device
     from . import kernels as K
 
-    dev = resolve_device(device)
+    devs = ([resolve_device(d) for d in devices] if devices is not None
+            else local_devices(device))
+    if not devs:
+        raise ValueError("the tile route needs at least one device")
+    dev = devs[0]
     tm = _PhaseTimer()
     tm.mark()
     tile, s_extract, lmax, by_vjl, use_indels = _pair_plan(
@@ -835,29 +977,26 @@ def find_pairs(
     out1: list[np.ndarray] = []
     out2: list[np.ndarray] = []
     if w:
-        n_dev = max(
-            1, min(device_count(dev), w // TILES_PER_DEVICE_MIN)
-        )
-        if n_dev > 1:
-            raise NotImplementedError(
-                "the tile route's worklist split across devices "
-                "(compairr_tpu/ops/engine.py:1718-1726) is not ported "
-                "yet; set COMPAIRR_DEVICES=1 to run on one device"
-            )
         kw = dict(differences=spec.differences,
                   exclude_self=spec.exclude_self, tile_m=tile, tile_n=tile)
+        n_dev = max(1, min(len(devs), w // TILES_PER_DEVICE_MIN))
+        replicas = replicate((pa, pb), devs[:n_dev])
 
-        # phase 1: per-tile match counts, every stream launched before
-        # the first copy back; empty tiles are dropped and the exact
-        # counts size each extraction call's record buffer
-        launched = [
-            (sw, cls, K.count_tiles(pa, pb, K.upload_worklist(sw, dev),
-                                    cls=cls, **kw))
-            for sw, cls in streams
-        ]
+        # phase 1: per-tile match counts, every stream's device spans
+        # launched before the first copy back; empty tiles are dropped
+        # and the exact counts size each extraction call's record buffer
+        launched = []
+        for sw, cls in streams:
+            nd = max(1, min(n_dev, len(sw) // TILES_PER_DEVICE_MIN))
+            span = [len(sw) * di // nd for di in range(nd + 1)]
+            launched.append((sw, cls, [
+                K.count_tiles(*replicas[di], K.upload_worklist(
+                    sw[span[di]:span[di + 1]], devs[di]), cls=cls, **kw)
+                for di in range(nd)
+            ]))
         filtered = []
-        for sw, cls, c in launched:
-            counts = c.cpu().numpy()
+        for sw, cls, parts in launched:
+            counts = np.concatenate([c.cpu().numpy() for c in parts])
             nz = counts > 0
             filtered.append((sw[nz], counts[nz], cls))
         tm.lap("count")
@@ -871,14 +1010,15 @@ def find_pairs(
         )
         wpr = tile // 32  # match-bit words per tile row
         wpt = tile * wpr  # words per tile
-        done = 0
+        done = di = 0
         for fwork, tile_counts, cls in filtered:
             for s0, s1, k_slab in pack_slabs(tile_counts, s_extract, k_cap):
                 slab = fwork[s0:s1]
                 widx, wvals, cnt = K.extract_tiles(
-                    pa, pb, K.upload_worklist(slab, dev), cls=cls,
-                    k=k_slab, **kw,
+                    *replicas[di], K.upload_worklist(slab, devs[di]),
+                    cls=cls, k=k_slab, **kw,
                 )
+                di = (di + 1) % n_dev
                 if cnt:
                     widx = widx.astype(np.int64)
                     tz = widx // wpt

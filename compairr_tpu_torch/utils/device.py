@@ -38,20 +38,24 @@ def resolve_device(device=None):
     return dev
 
 
-def device_count(device=None) -> int:
-    """Devices a device route would spread over: all local CUDA
-    devices, capped by COMPAIRR_DEVICES; 1 on the CPU."""
+def local_devices(device=None) -> list:
+    """The devices a device route may spread over: cuda:0 .. cuda:n-1,
+    all local CUDA devices capped by COMPAIRR_DEVICES (only the one named
+    when `device` carries an index); [cpu] on the CPU. Multi-device entry
+    points also take an explicit device list, which may repeat a device
+    (its replicas then share their tensors)."""
     import torch
 
     dev = resolve_device(device)
-    if dev.type == "cpu":
-        return 1
+    if dev.type == "cpu" or dev.index is not None:
+        return [dev]
     n = torch.cuda.device_count()
     try:
         cap = int(os.environ.get("COMPAIRR_DEVICES", "0"))
     except ValueError:
         cap = 0
-    return max(1, min(cap, n)) if cap > 0 else n
+    n = max(1, min(cap, n)) if cap > 0 else n
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 @contextlib.contextmanager

@@ -1045,3 +1045,93 @@ def test_dense_match_rejects_cpu_worklist(cuda, sets):
         K.dense_match(a, b, work.cpu(), differences=1,
                       score_mode=K.SC_PRODUCT, tile_m=128, tile_n=128,
                       r1p=8, r2p=128)
+
+
+def _with_reps(db, seed, n_reps=5):
+    """db with its rows spread over n_reps repertoires."""
+    import numpy as np
+    from dataclasses import replace
+
+    rng = np.random.default_rng(seed)
+    return replace(db, rep_no=rng.integers(0, n_reps, db.n).astype(np.int32),
+                   repertoire_ids=[f"R{r}" for r in range(n_reps)])
+
+
+# case: (d, indels, score, COMPAIRR_V3, the kernel every shard launches)
+_SHARD_RUNS = {
+    "dense_match": (2, False, "product", "1", "dense_match"),
+    "dense_onehot": (2, False, "product", "0", "dense_onehot"),
+    "dense_indel": (1, True, "product", "1", "dense_indel"),
+    "dense_general_min": (1, True, "min", "1", "dense_general"),
+    "dense_general_ratio": (2, False, "ratio", "1", "dense_general"),
+}
+
+
+@pytest.mark.parametrize("case", list(_SHARD_RUNS))
+def test_dense_sharded_cuda_equals_single(cuda, monkeypatch, case):
+    """dense_matrix_sharded and dense_matrix_ring over [cuda:0] * 3 equal
+    dense_matrix on the card (ratio, float64 in another order: rtol
+    1e-12), each shard with work launching the run's kernel once."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.constants import (
+        SCORE_MIN,
+        SCORE_PRODUCT,
+        SCORE_RATIO,
+    )
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.ops.engine import MatchSpec, dense_matrix
+    from compairr_tpu_torch.parallel import mesh
+
+    d, indels, score, v3, kernel = _SHARD_RUNS[case]
+    score = {"product": SCORE_PRODUCT, "min": SCORE_MIN,
+             "ratio": SCORE_RATIO}[score]
+    d1, d2 = _planted_pair(24)
+    d1 = _with_reps(_counted(d1, 5), 7)
+    d2 = _with_reps(_counted(d2, 6), 8, 6)
+    spec = MatchSpec(differences=d, indels=indels, ignore_genes=False)
+    monkeypatch.setenv("COMPAIRR_V3", v3)
+    want = dense_matrix(d1, d2, spec, score, False, device="cuda")
+    devs = [torch.device("cuda", 0)] * 3
+    for run in (mesh.dense_matrix_sharded, mesh.dense_matrix_ring):
+        K.reset_launches()
+        got = run(d1, d2, spec, score, False, devices=devs)
+        assert K.LAUNCHES[kernel] >= 3, (run.__name__, dict(K.LAUNCHES))
+        assert sum(K.LAUNCHES.values()) == K.LAUNCHES[kernel]
+        if case.endswith("ratio"):
+            np.testing.assert_allclose(got, want, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(got, want)
+    assert sum(1 for t in mesh.LAST_STATS.get("real_tiles", [1]) if t) >= 1
+    assert want.sum() > 0 and want.shape == (5, 6)
+
+
+def test_find_pairs_device_split_cuda_equals_one_device(cuda, monkeypatch):
+    """find_pairs -d 1 -i over [cuda:0] * 3 (each class stream in 3
+    spans) returns one device's pairs."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(24)
+    spec = E.MatchSpec(1, True, False)
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(E, "TILES_PER_DEVICE_MIN", 1)
+    K.reset_launches()
+    want = E.find_pairs(d1, d2, spec, devices=[dev])
+    one = K.LAUNCHES["count_tiles"]
+    K.reset_launches()
+    got = E.find_pairs(d1, d2, spec, devices=[dev] * 3)
+    assert K.LAUNCHES["count_tiles"] > one >= 1
+    assert K.LAUNCHES["extract_tiles"] >= 1
+
+    def key(r):
+        o = np.lexsort((r[1], r[0]))
+        return r[0][o], r[1][o]
+
+    for g, w in zip(key(got), key(want)):
+        np.testing.assert_array_equal(g, w)
+    assert len(want[0]) > 0

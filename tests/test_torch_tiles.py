@@ -606,14 +606,48 @@ def test_prefetch_joins_and_reraises(dbs, monkeypatch):
     assert not teng._RESULT_PREFETCH
 
 
-def test_tile_route_rejects_a_device_split(dbs, monkeypatch):
-    """More than one device would split the worklist, which is not
-    ported: the route raises instead of running on one."""
+def test_tile_route_rejects_a_device_split(dbs):
+    """A device split over no device at all raises; it never falls back
+    to a device the caller did not list."""
+    (_, _), (t1, t2) = dbs
+    with pytest.raises(ValueError, match="at least one device"):
+        teng.find_pairs(t1, t2, teng.MatchSpec(1, True, False), devices=[])
+
+
+def test_tile_route_splits_class_streams_over_devices(dbs, monkeypatch):
+    """Over 4 devices (utils.device.local_devices) the route splits each
+    class stream into 4 contiguous spans, counted in span order on their
+    replicas, and returns one device's pairs."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
     from compairr_tpu_torch.utils import device as D
 
     (_, _), (t1, t2) = dbs
+    spec = teng.MatchSpec(1, True, False)
+    want = teng.find_pairs(t1, t2, spec, device="cpu")
+    calls = []
+    count_tiles = K.count_tiles
+
+    def counted(a, b, work, **kw):
+        calls.append((id(a), kw["cls"], work.numpy().copy()))
+        return count_tiles(a, b, work, **kw)
+
     monkeypatch.setattr(teng, "TILES_PER_DEVICE_MIN", 1)
-    monkeypatch.setattr(D, "device_count", lambda *_: 4)
-    with pytest.raises(NotImplementedError, match="COMPAIRR_DEVICES=1"):
-        teng.find_pairs(t1, t2, teng.MatchSpec(1, True, False),
-                        device="cpu")
+    monkeypatch.setattr(D, "local_devices",
+                        lambda *_: [torch.device("cpu")] * 4)
+    monkeypatch.setattr(K, "count_tiles", counted)
+    got = teng.find_pairs(t1, t2, spec, device="cpu")
+    assert len({a for a, _, _ in calls}) == 1  # one shared CPU replica
+    classes = {c for _, c, _ in calls}
+    assert len(calls) > len(classes)
+    for cls in classes:
+        spans = [w for _, c, w in calls if c == cls]
+        whole = np.concatenate(spans)
+        sizes = [len(w) for w in spans]
+        assert len(spans) == min(4, len(whole))
+        assert max(sizes) - min(sizes) <= 1
+        assert (np.lexsort((whole[:, 0], whole[:, 1]))
+                == np.arange(len(whole))).all()  # column-major, in order
+    key = lambda r: sorted(zip(r[0].tolist(), r[1].tolist()))  # noqa: E731
+    assert key(got) == key(want) and len(want[0]) > 0
