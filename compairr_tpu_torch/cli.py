@@ -457,12 +457,14 @@ def main(argv: Optional[list[str]] = None, devices=None) -> int:
 
     set_runtime_threads(opt.threads)
 
-    # multi-process initialisation (only when COMPAIRR_DISTRIBUTED asks
-    # for it): afterwards the dense engine's shards span every rank's
+    # multi-process initialisation (only when COMPAIRR_DISTRIBUTED or
+    # torchrun's MASTER_ADDR asks for it, initialize_distributed's own
+    # gate): afterwards the dense engine's shards span every rank's
     # devices. Gated on the env so host-only runs never import torch.
     import os as _os
 
-    if _os.environ.get("COMPAIRR_DISTRIBUTED"):
+    if (_os.environ.get("COMPAIRR_DISTRIBUTED")
+            or "MASTER_ADDR" in _os.environ):
         from .parallel.mesh import initialize_distributed
 
         initialize_distributed()

@@ -81,7 +81,7 @@
 //     32 (long rows at big tiles); a unit walks its window's part of each
 //     chunk.
 //
-// Bound on this card (chip_smoke.dense_bound): by bytes where keys are
+// Bound on this card (bench.dense_bound): by bytes where keys are
 // sparse (each touched row read once, the matrix written once), by int8
 // operations under -g. This design's own floor is on the CUDA cores
 // (chip_smoke.tile_floor over dense_bound's pairs): C (P + 2) integer

@@ -46,11 +46,11 @@
 //     exact in any order; mean accumulates cnt_a + cnt_b and the caller
 //     halves once.
 //
-// Bounds on the card, for the work of a call (chip_smoke.dense_bound):
-// the function's bound is its bytes (each row a tile covers read once,
-// the matrix written once) over 3.35 TB/s, or, where equal-key pairs
-// are many (-g, keys by length alone), its int8 operations (2 lpad a
-// pair) over 1,979 TOP/s. This design's own floor is on the CUDA
+// Bounds on the card, for the work of a call (bench.dense_bound): the
+// function's bound is its bytes (each row a tile covers read once, the
+// matrix written once) over 3.35 TB/s, or, where equal-key pairs are
+// many (-g, keys by length alone), its int8 operations (2 a residue of
+// each pair's rows) over 1,979 TOP/s. This design's own floor is on the CUDA
 // cores: C (P + 2) integer operations an equal-key pair (P LOP3, one
 // popcount, one compare) over 132 SMs x 64 a clock. ptxas -v (sm_90a,
 // 128 threads a block): 72 registers and 16 bytes of spill stores for

@@ -1,7 +1,12 @@
-"""The multi-device dry run of the port: the counterpart of the JAX
-package's dryrun_multichip (__graft_entry__.py), with its own copy of
-that file's synthetic sets (the same numpy seeds, so the same rows).
+"""The port's entry points: entry(), one dense kernel call on two
+small synthetic sets, and dryrun_multichip, the multi-device dry run.
+The counterparts of the JAX package's __graft_entry__.py, with their own
+copy of that file's synthetic sets (the same numpy seeds, so the same
+rows).
 
+    COMPAIRR_DEVICE=cpu python -c \\
+        "from compairr_tpu_torch.graft_entry import entry; \\
+step, args = entry(); print(step(*args).sum())"
     COMPAIRR_DEVICE=cpu python -c \\
         "from compairr_tpu_torch.graft_entry import dryrun_multichip; \\
 dryrun_multichip(8)"
@@ -48,6 +53,57 @@ def _synthetic_db(n, n_reps, seed, lmax=16):
     )
 
 
+def _plant(d1, d2, k, seed):
+    """Copy k random rows of d1 over k random rows of d2 (residues,
+    length, V and J), the first k // 2 of them with one substitution."""
+    rng = np.random.default_rng(seed)
+    src = rng.choice(d1.n, size=k, replace=False)
+    dst = rng.choice(d2.n, size=k, replace=False)
+    d2.seqs[dst] = d1.seqs[src]
+    d2.lengths[dst] = d1.lengths[src]
+    d2.v_no[dst] = d1.v_no[src]
+    d2.j_no[dst] = d1.j_no[src]
+    d2.seqs[dst[: k // 2], 0] = (d2.seqs[dst[: k // 2], 0] + 1) % 20
+
+
+def _entry_dbs(planted=False):
+    """entry()'s two 512-row sets (seeds 1 and 2, 4 repertoires), which
+    hold no pair within d=2; planted copies 32 rows of set 1 into set 2
+    (seed 3), so that the sums are not all zero."""
+    d1 = _synthetic_db(512, 4, seed=1)
+    d2 = _synthetic_db(512, 4, seed=2)
+    if planted:
+        _plant(d1, d2, 32, seed=3)
+    return d1, d2
+
+
+def entry(device=None, planted=False):
+    """One step of the dense overlap accumulation, the flagship kernel:
+    (step, example_args), where step(a_rows, b_rows, work) returns the
+    raw int64 [r1p, r2p] sums of the plan's kernel (dense_match here)
+    over the whole worklist of two 512-row sets (seeds 1 and 2, 4
+    repertoires, d=2, product, 128-row tiles), as engine.dense_span
+    calls it; example_args are both sets' derived rows and the uploaded
+    worklist. planted=True takes _entry_dbs' planted sets, whose sums
+    are not all zero. Runs on `device`, by default COMPAIRR_DEVICE's or
+    CUDA (utils.device.resolve_device, which raises with no card)."""
+    from functools import partial
+
+    from .constants import SCORE_PRODUCT
+    from .ops import engine as E
+    from .ops import kernels as K
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    d1, d2 = _entry_dbs(planted)
+    spec = E.MatchSpec(differences=2, indels=False, ignore_genes=False)
+    plan = E.dense_plan(d1, d2, spec, SCORE_PRODUCT, False)
+    a = E.dense_side(plan, d1, plan.order_a, plan.key_a, plan.npad_a, dev)
+    b = E.dense_side(plan, d2, plan.order_b, plan.key_b, plan.npad_b, dev)
+    example_args = (a.rows, b.rows, K.upload_worklist(plan.work, dev))
+    return partial(E.dense_launch, plan), example_args
+
+
 def _dryrun_dbs():
     """The dry run's pair of sets, with near-duplicates planted so that
     the matrix is not all zero, and its -d 1 -i spec; the multi-process
@@ -56,14 +112,7 @@ def _dryrun_dbs():
 
     d1 = _synthetic_db(256, 3, seed=11)
     d2 = _synthetic_db(256, 3, seed=12)
-    rng = np.random.default_rng(13)
-    src = rng.choice(d1.n, size=32, replace=False)
-    dst = rng.choice(d2.n, size=32, replace=False)
-    d2.seqs[dst] = d1.seqs[src]
-    d2.lengths[dst] = d1.lengths[src]
-    d2.v_no[dst] = d1.v_no[src]
-    d2.j_no[dst] = d1.j_no[src]
-    d2.seqs[dst[:16], 0] = (d2.seqs[dst[:16], 0] + 1) % 20
+    _plant(d1, d2, 32, seed=13)
     spec = MatchSpec(differences=1, indels=True, ignore_genes=False)
     return d1, d2, spec
 

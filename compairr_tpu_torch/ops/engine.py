@@ -55,13 +55,15 @@ TILE_N = 128
 
 # Route probe: find_pairs records which execution route resolved the
 # most recent call ("exact", "variant_join", "pigeonhole",
-# "pigeonhole_indel", "tiles"). Diagnostic only.
+# "pigeonhole_indel", "tiles") and, for "tiles", the rows of its tiles.
+# Diagnostic only.
 LAST_ROUTE: Optional[str] = None
+LAST_TILE: Optional[int] = None
 
 
-def _note_route(name: str) -> None:
-    global LAST_ROUTE
-    LAST_ROUTE = name
+def _note_route(name: str, tile: Optional[int] = None) -> None:
+    global LAST_ROUTE, LAST_TILE
+    LAST_ROUTE, LAST_TILE = name, tile
 
 
 class _PhaseTimer:
@@ -554,17 +556,24 @@ def dense_span(plan: DensePlan, a: DenseSide, b: DenseSide,
             a.key, a.n, b.key, b.n, int(plan.indels), plan.tile_m,
             plan.tile_n,
         ))
-    dev = a.rows["rep"].device
+    return dense_launch(plan, a.rows, b.rows,
+                        K.upload_worklist(work, a.rows["rep"].device))
+
+
+def dense_launch(plan: DensePlan, a_rows: dict, b_rows: dict, work_dev):
+    """One call of plan.kind's kernel wrapper on derived rows (a DenseSide's
+    rows) and a worklist already on their device (kernels.upload_worklist):
+    the raw [r1p, r2p] sums, queued on the device without a host sync."""
+    from . import kernels as K
+
     kw = dict(differences=plan.spec.differences,
               score_mode=K.score_mode(plan.score_int, plan.ignore_counts),
               tile_m=plan.tile_m, tile_n=plan.tile_n, r1p=plan.r1p,
               r2p=plan.r2p)
-    work_dev = K.upload_worklist(work, dev)
     if plan.kind == "dense_general":
-        return K.dense_general(a.rows, b.rows, work_dev,
-                               indels=plan.indels,
+        return K.dense_general(a_rows, b_rows, work_dev, indels=plan.indels,
                                float_out=plan.float_out, **kw)
-    return getattr(K, plan.kind)(a.rows, b.rows, work_dev, **kw)
+    return getattr(K, plan.kind)(a_rows, b_rows, work_dev, **kw)
 
 
 def dense_result(plan: DensePlan, acc) -> np.ndarray:
@@ -611,17 +620,23 @@ def dense_matrix(
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
+    tm = _PhaseTimer()
+    tm.mark()
     plan = dense_plan(db1, db2, spec, score_int, ignore_counts, tile_m,
                       tile_n)
+    tm.lap("plan")
     a = dense_side(plan, db1, plan.order_a, plan.key_a, plan.npad_a, dev)
     b = a if plan.shared else dense_side(plan, db2, plan.order_b,
                                          plan.key_b, plan.npad_b, dev)
+    tm.lap("derive")
     if logger is not None and progress_prompt is not None:
         logger.progress_init(progress_prompt, max(len(plan.work), 1))
     out = dense_result(plan, dense_span(plan, a, b, plan.work))
+    tm.lap("kernel")  # dense_result's copy back waits for the kernel
     if logger is not None and progress_prompt is not None:
         logger.progress_update(len(plan.work))
         logger.progress_done()
+    tm.report(f"dense_matrix {plan.kind} tiles={len(plan.work)}")
     return out
 
 
@@ -926,7 +941,6 @@ def find_pairs(
             _note_route(route)
             return with_diagonal(*ph)
 
-    _note_route("tiles")
     from ..utils.device import local_devices, resolve_device
     from . import kernels as K
 
@@ -940,6 +954,7 @@ def find_pairs(
     tile, s_extract, lmax, by_vjl, use_indels = _pair_plan(
         db1, db2, spec, dev.type
     )
+    _note_route("tiles", tile)
     tm.lap("pair_plan")
     delta = 1 if use_indels else 0
     # a self-comparison shares one derive, pad band and all: each pad

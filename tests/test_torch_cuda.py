@@ -1135,3 +1135,53 @@ def test_find_pairs_device_split_cuda_equals_one_device(cuda, monkeypatch):
     for g, w in zip(key(got), key(want)):
         np.testing.assert_array_equal(g, w)
     assert len(want[0]) > 0
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_entry_on_card_equals_dense_span(cuda, planted):
+    """The entry point on the card: one dense_match launch, its
+    raw sums equal to engine.dense_span's on the same plan; on the
+    planted sets the sums are not all zero."""
+    import torch
+
+    from compairr_tpu_torch.constants import SCORE_PRODUCT
+    from compairr_tpu_torch.graft_entry import _entry_dbs, entry
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    step, args = entry(cuda, planted=planted)
+    before = K.LAUNCHES["dense_match"]
+    out = step(*args)
+    assert K.LAUNCHES["dense_match"] == before + 1
+    d1, d2 = _entry_dbs(planted)
+    plan = E.dense_plan(d1, d2, E.MatchSpec(2, False, False), SCORE_PRODUCT,
+                        False)
+    want = E.dense_span(
+        plan,
+        E.dense_side(plan, d1, plan.order_a, plan.key_a, plan.npad_a, cuda),
+        E.dense_side(plan, d2, plan.order_b, plan.key_b, plan.npad_b, cuda))
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and torch.equal(out, want)
+    assert (int(out.sum()) > 0) == planted
+
+
+def test_bench_kernel_section_on_card(cuda, monkeypatch):
+    """The bench's kernel section at a cut size: its checksum equals
+    dense_matrix's on the same sets, its wall is no shorter than its
+    bound, and it names the card."""
+    import torch
+
+    from compairr_tpu_torch import bench
+    from compairr_tpu_torch.constants import SCORE_PRODUCT
+    from compairr_tpu_torch.ops import engine as E
+
+    monkeypatch.setenv("COMPAIRR_BENCH_NK", "100000")
+    monkeypatch.setenv("COMPAIRR_BENCH_KERNEL_REPS", "2")
+    km = bench._kernel_metrics(768, cuda)
+    d1, d2 = bench.kernel_sets(100_000)
+    want = E.dense_matrix(d1, d2, E.MatchSpec(2, False, False),
+                          SCORE_PRODUCT, False, tile_m=768, tile_n=768,
+                          device=cuda)
+    assert want.sum() > 0 and km["kernel_checksum"] == float(want.sum())
+    assert km["device_kind"] == torch.cuda.get_device_name(cuda)
+    assert 0 < km["kernel_bound_s"] <= km["kernel_wall_s"]

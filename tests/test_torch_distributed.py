@@ -30,16 +30,14 @@ def test_two_process_distributed_matches_jax_single():
         np.testing.assert_allclose(ring, single, rtol=0, atol=0)
 
 
-def test_cli_distributed_dense_matches_single(tmp_path):
-    """Two CLI processes under COMPAIRR_DISTRIBUTED (a tcp:// rendezvous,
-    WORLD_SIZE 2, RANK 0 and 1; gloo on the CPU) take the dense engine's
-    sharded path over both ranks, and each writes the bytes of a
-    single-process run."""
+def _cli_ranks_match_single(tmp_path, rank_env):
+    """Two CLI processes (-m -d 1 -i on the dense engine, on the CPU),
+    each with rank_env(r) added to its environment, must both join one
+    gloo group and each write the bytes of a single-process run."""
     import os
     import subprocess
     import sys
 
-    from compairr_tpu_torch.parallel.worker import _free_port
     from synth import make_tsv
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,6 +45,9 @@ def test_cli_distributed_dense_matches_single(tmp_path):
     a = make_tsv(str(tmp_path / "a.tsv"), 500, 4, seed=81, **shape)
     b = make_tsv(str(tmp_path / "b.tsv"), 400, 5, seed=82, **shape)
     env = dict(os.environ, COMPAIRR_ENGINE="dense", COMPAIRR_DEVICE="cpu")
+    for k in ("COMPAIRR_DISTRIBUTED", "MASTER_ADDR", "MASTER_PORT",
+              "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
 
     def cli(out, **extra):
         return subprocess.Popen(
@@ -56,9 +57,7 @@ def test_cli_distributed_dense_matches_single(tmp_path):
             text=True,
         )
 
-    url = f"tcp://localhost:{_free_port()}"
-    procs = [cli(tmp_path / f"out{r}.tsv", COMPAIRR_DISTRIBUTED=url,
-                 WORLD_SIZE="2", RANK=str(r)) for r in (0, 1)]
+    procs = [cli(tmp_path / f"out{r}.tsv", **rank_env(r)) for r in (0, 1)]
     try:
         errs = [p.communicate(timeout=300)[1] for p in procs]
     finally:
@@ -74,6 +73,30 @@ def test_cli_distributed_dense_matches_single(tmp_path):
     assert want.count(b"\n") > 1
     for r in (0, 1):
         assert (tmp_path / f"out{r}.tsv").read_bytes() == want
+
+
+def test_cli_distributed_dense_matches_single(tmp_path):
+    """Two CLI processes under COMPAIRR_DISTRIBUTED (a tcp:// rendezvous,
+    WORLD_SIZE 2, RANK 0 and 1; gloo on the CPU) take the dense engine's
+    sharded path over both ranks, and each writes the bytes of a
+    single-process run."""
+    from compairr_tpu_torch.parallel.worker import _free_port
+
+    url = f"tcp://localhost:{_free_port()}"
+    _cli_ranks_match_single(tmp_path, lambda r: dict(
+        COMPAIRR_DISTRIBUTED=url, WORLD_SIZE="2", RANK=str(r)))
+
+
+def test_cli_joins_under_torchrun_env_alone(tmp_path):
+    """torchrun's variables alone (MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+    RANK; no COMPAIRR_DISTRIBUTED) make the CLI join the process group,
+    as the JAX package's CLI joins under its launcher's variable."""
+    from compairr_tpu_torch.parallel.worker import _free_port
+
+    port = str(_free_port())
+    _cli_ranks_match_single(tmp_path, lambda r: dict(
+        MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2",
+        RANK=str(r)))
 
 
 def test_ranks_with_unequal_shard_counts_raise():

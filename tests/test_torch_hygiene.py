@@ -64,6 +64,11 @@ def test_import_leaves_jax_unloaded():
         "compairr_tpu_torch.parallel.mesh",
         "compairr_tpu_torch.parallel.worker",
         "compairr_tpu_torch.graft_entry",
+        "compairr_tpu_torch.bench",
+        "compairr_tpu_torch.scripts.weak_scaling",
+        "compairr_tpu_torch.scripts.scale_demo",
+        "compairr_tpu_torch.scripts.multihost_demo",
+        "compairr_tpu_torch.scripts.ab_compare",
     ]
     code = (
         "import importlib, sys\n"
