@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 17,20   # phases 1, 2 and these alone
+    python3 chip_smoke.py --phases 21 --cold-tiles  # with phase 21's
+                                           # fresh-process split walls
 
 Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
 
@@ -55,11 +57,18 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      with no COMPAIRR_DEVICE: each run must launch both kernels and be
      byte-equal to the host route, and one runs again as `python -m
      compairr_tpu_torch`;
- 12. times the tile route's routing choices against their
-     alternatives, in turns: find_pairs -d 1 -i with 128-row tiles
-     against 512-row ones at 1M and 4M rows a set (engine.BIG_TILE_ROWS),
-     and the CLI's -m -d 1 -i at 1M rows with and without the
-     find_pairs prefetch; each pair of alternatives must agree;
+ 12. the routing sweep (phase_route_sweep) at 30k, 100k, 300k, 1M and
+     4M rows a set of the headline's shape: find_pairs on the host
+     route against the tile route at 128-row and 512-row tiles (-d 1,
+     -d 2, -d 3), 128 against 512 (-d 1 -i; under -g in phase 19), the
+     tile route's start-up in a fresh process step by step, and at 1M
+     rows a set the CLI in a fresh process a run (-m -d 2, -m -d 1,
+     -x -d 2, -c -d 1) on the host route, the tile route and the
+     default (engine.card_route: the host), each alternative equal to
+     the others; the crossovers printed beside the rule and the tile,
+     and the start-up beside the most the tile route saved; then the
+     CLI's -m -d 1 -i at 1M rows with and without the find_pairs
+     prefetch, in turns, byte-equal;
  13. holds dense_indel and dense_general (both on residue bit planes,
      and reversed rows' planes on indel runs) against their plain
      versions on every full-width tile: the indel workload's dense
@@ -112,8 +121,9 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
  19. times the tile route of find_pairs under -g (keys by length alone)
      on the indel workload's sets (phase 7's), their 100k cut and the 1M
      x 1M sets, -d 1 -i and -d 2 under
-     COMPAIRR_PIGEONHOLE=0, and the 1M -d 1 -i run again at tile 512
-     (engine.BIG_TILE_ROWS moved below the sets' rows, as in phase 12):
+     COMPAIRR_PIGEONHOLE=0, and the -d 1 -i runs again at the other
+     tile of 128 and 512 (forced_tile, as in phase 12; the same
+     pairs):
      find_pairs' wall, phases and launches, count_tiles and
      extract_tiles (CUDA events), their bounds and design floors;
      timing only, keeping the 1M runs' pairs;
@@ -131,12 +141,20 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      COMPAIRR_V3=0 (dense_onehot), and dense_matrix_ring over 4; the
      indel workload's -d 1 -i matrices over 4 shards, product
      (dense_indel) equal and ratio (dense_general, float64) within rtol
-     1e-12; find_pairs -d 1 -i over 4 devices, the pairs equal to one
-     device's, count_tiles launched once per class stream and device
-     span; two processes on torch.distributed (2 shards each)
-     whose sharded and ring matrices of the kernel workload reproduce
-     24,865,230, and graft_entry.dryrun_multichip(4) (sum 238). Prints
-     the walls of 1, 2 and 4 shards and of each rank, LAST_STATS
+     1e-12; find_pairs -d 1 -i over 4 devices (split at 2 tiles a
+     device), the pairs equal to one device's, count_tiles launched once
+     per class stream and device span; with several cards and
+     --cold-tiles, the tile route's CLI runs (-m -d 1 -i and -g -m -d 1
+     -i on the indel workload, -m -d 2 at 4M rows a set) in a fresh
+     process on one card, on all split at 2 tiles a card and on all at
+     engine.TILES_PER_DEVICE_MIN, byte-equal, with a card's first-use
+     cost and the threshold it gives (phase_cold_tiles: what decides
+     TILES_PER_DEVICE_MIN, run only when it is re-decided); two
+     processes on
+     torch.distributed (2 shards each) whose sharded and ring matrices
+     of the kernel workload reproduce 24,865,230, and
+     graft_entry.dryrun_multichip(4) (sum 238). Prints the walls of 1,
+     2 and 4 shards and of each rank, LAST_STATS
      (pad_fraction, allreduce_s, backend) and each shard's kernel time:
      on one card overheads of the split, not scaling;
  22. drives the entry point graft_entry.entry() on the card, on
@@ -146,11 +164,11 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      and the planted sums must not be zero;
  23. the bench's headline at its full size, 24,205,557 rows (the port's
      bench._headline_db: 120 repertoires, 50 V x 13 J, a -d 2
-     self-comparison), each run's wall and its phases printed: the host
-     route (bench._headline, the default routing) and the tile route
-     (COMPAIRR_PIGEONHOLE=0, 512-row tiles above engine.BIG_TILE_ROWS,
-     count_tiles and extract_tiles launched) must each give 24,684,757
-     matched pairs and the checksum 81,495,996,090; dense_matrix of the
+     self-comparison), each run's wall and its phases printed: the
+     default routing (bench._headline; engine.card_route keeps it on the
+     host pigeonhole, no kernel launched) and the tile route
+     (COMPAIRR_PIGEONHOLE=0, 512-row tiles, count_tiles and
+     extract_tiles launched) must each give 24,684,757 matched pairs and the checksum 81,495,996,090; dense_matrix of the
      set against itself at tile 128 (the CLI's) and 768 must sum to it
      and equal the host route's matrix cell for cell, dense_match
      launched once each, and its kernel is timed at both tiles (CUDA
@@ -240,6 +258,11 @@ G_ONEHOT_REPS = 2
 G_JOIN_REPS = 2
 # phase 23: the bench headline's outputs (the JAX package's BENCH_r05.json)
 HEADLINE_PAIRS, HEADLINE_CHECKSUM = 24_684_757, 81_495_996_090
+# phase 21: worklist tiles a card at which the tile route's split is
+# exercised (the parent's threshold), and rows a set of its fresh-process
+# -m -d 2 runs
+TILES_PER_DEVICE_SPLIT = 2
+COLD_D2_ROWS = 4_000_000
 # phase 25: rows a shard of the weak-scaling run, and the least compute_s
 # of one shard: 10 x a launch's fixed cost (about 0.1 ms a shard, phase 21)
 WS_ROWS = 1_500_000
@@ -1033,18 +1056,26 @@ def tile_floor(p, bd, card_name):
 
 
 def write_tsv(db, path):
-    """An AIRR TSV holding db's rows."""
-    letters = np.frombuffer(AA_CHARS.encode(), dtype=np.uint8)
-    with open(path, "w") as f:
-        f.write("repertoire_id\tsequence_id\tduplicate_count\tv_call\t"
-                "j_call\tjunction_aa\n")
-        for i in range(db.n):
-            s = letters[db.seqs[i, : db.lengths[i]]].tobytes().decode()
-            f.write(
-                f"{db.repertoire_ids[db.rep_no[i]]}\tS{i}\t{db.counts[i]}\t"
-                f"{db.genes.v_names[db.v_no[i]]}\t"
-                f"{db.genes.j_names[db.j_no[i]]}\t{s}\n"
-            )
+    """An AIRR TSV holding db's rows (amino acids): each sequence as the
+    fixed-width bytes of its letters, the pad residue (20) as a NUL that
+    the bytes type drops at the end."""
+    letters = np.frombuffer(AA_CHARS.encode() + b"\0", dtype=np.uint8)
+    width = db.seqs.shape[1]
+    seqs = np.ascontiguousarray(letters[np.minimum(db.seqs, 20)])
+
+    def names(table, idx):
+        return np.array([x.encode() for x in table], dtype=object)[idx]
+
+    rows = zip(names(db.repertoire_ids, db.rep_no),
+               (b"S%d" % i for i in range(db.n)),
+               db.counts.astype("S20").tolist(),
+               names(db.genes.v_names, db.v_no),
+               names(db.genes.j_names, db.j_no),
+               seqs.view(f"S{width}").ravel().tolist())
+    with open(path, "wb") as f:
+        f.write(b"repertoire_id\tsequence_id\tduplicate_count\tv_call\t"
+                b"j_call\tjunction_aa\n")
+        f.write(b"".join(b"\t".join(r) + b"\n" for r in rows))
 
 
 CLI_RUNS = (
@@ -1097,10 +1128,11 @@ def cli_files(workdir, n):
     return paths
 
 
-def module_run(flags, inputs, out, env_extra):
-    """`python -m compairr_tpu_torch` on inputs with env_extra set
-    (None: unset) and COMPAIRR_ENGINE unset unless given: the output
-    file's bytes."""
+def module_timed(flags, inputs, out, env_extra):
+    """`python -m compairr_tpu_torch` on inputs in a process of its own,
+    with env_extra set (None: unset) and COMPAIRR_ENGINE unset unless
+    given: (the output file's bytes, the process's wall seconds, its
+    stderr)."""
     env = dict(os.environ)
     env.pop("COMPAIRR_ENGINE", None)
     for k, v in env_extra.items():
@@ -1108,15 +1140,22 @@ def module_run(flags, inputs, out, env_extra):
             env.pop(k, None)
         else:
             env[k] = v
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "compairr_tpu_torch", *flags, *inputs,
          "-o", out],
         cwd=HERE, env=env, capture_output=True, text=True, timeout=600,
     )
+    wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"{flags}: {proc.stderr[-3000:]}")
     with open(out, "rb") as f:
-        return f.read()
+        return f.read(), wall, proc.stderr
+
+
+def module_run(flags, inputs, out, env_extra):
+    """module_timed's output bytes."""
+    return module_timed(flags, inputs, out, env_extra)[0]
 
 
 def phase_cli(workdir, files, device_env):
@@ -1246,31 +1285,278 @@ def phase_cli_tiles(workdir, files):
 AB_ORDER = (True, False, False, True, True, False, False, True)
 
 
-def phase_tile_size(a, b, spec):
-    """find_pairs on the card with 128-row tiles against 512-row ones
-    (engine.BIG_TILE_ROWS moved below or above the sets' rows), in
-    AB_ORDER after one warm call each: the pairs of both must be equal.
-    Returns each tile's walls and the phase splits of its last call."""
+# phase 12's routing sweep: rows a set, the CLI commands it times (tag,
+# flags, inputs), and its routes by COMPAIRR_PIGEONHOLE (None: the rule)
+SWEEP_ROWS = (30_000, 100_000, 300_000, 1_000_000, 4_000_000)
+SWEEP_CLI_ROWS = (1_000_000,)  # a fresh process a run
+SWEEP_CLI = (
+    ("-m -d 2", ["-m", "-d", "2"], "ab"),
+    ("-m -d 1", ["-m", "-d", "1"], "ab"),
+    ("-x -d 2", ["-x", "-d", "2"], "qb"),
+    ("-c -d 1", ["-c", "-d", "1"], "b"),
+)
+SWEEP_ROUTES = (("host", "all"), ("tile", "0"), ("default", None))
+SWEEP_REPS = 2  # find_pairs calls of each alternative, in turns
+# the tile a route does not take, of 128 and 512
+OTHER_TILE = {128: 512, 512: 128}
+
+
+def forced_tile(tile):
+    """engine._pair_plan made to plan tile-row tiles for the block."""
+    from functools import partial
+
     from compairr_tpu_torch.ops import engine as E
 
-    def run(small):
-        with patched(E, "BIG_TILE_ROWS", 1 << 62 if small else 0):
-            return timed(lambda: E.find_pairs(a, b, spec, device=DEVICE,
-                                              want_dist=False))
+    return patched(E, "_pair_plan", partial(E._pair_plan, tile=tile))
 
-    ref = {t: run(t)[0] for t in (True, False)}
-    if not pairs_equal(ref[True], ref[False]):
-        raise AssertionError("tile 128 and tile 512 give different pairs")
-    res = {128: {"wall_s": []}, 512: {"wall_s": []}}
-    for small in AB_ORDER:
-        _, wall, split = run(small)
-        r = res[128 if small else 512]
-        r["wall_s"].append(wall)
-        r["phases_s"] = split
-    for tile, r in res.items():
-        print(f"  {a.n} x {b.n} rows, tile {tile}: find_pairs walls (s) "
-              f"{r['wall_s']}, mean {np.mean(r['wall_s'])}; last call by "
-              f"phase {r['phases_s']}")
+
+def sweep_sets(n):
+    """The sweep's two sets of n rows in the bench headline's shape (120
+    repertoires, 50 V x 13 J, lengths 9-22; seeds 31 and 32): 1 % of
+    set 1's rows planted into set 2 with one substitution (seed 33),
+    then 0.5 % with one indel (seed 34)."""
+    a = synth_arrays(n, 120, 50, 13, 31)
+    b = synth_arrays(n, 120, 50, 13, 32)
+    plant_near_dups(a, b, 0.01, 33)
+    return a, with_planted(a, b, INDEL_FRAC, 34, (1, 2))
+
+
+def fp_run(a, b, spec, ph, tile=None):
+    """find_pairs(a, b, spec) on the card under COMPAIRR_PIGEONHOLE=ph,
+    with tile-row tiles when tile is given (forced_tile): (pairs, wall,
+    route, the tile route's count+extract seconds a worklist tile or
+    None, the phase splits)."""
+    from compairr_tpu_torch.ops import engine as E
+
+    force = forced_tile(tile) if tile else contextlib.nullcontext()
+    with env(COMPAIRR_PIGEONHOLE=ph), force:
+        got, wall, split = timed(lambda: E.find_pairs(
+            a, b, spec, device=DEVICE, want_dist=False))
+    per_tile = None
+    for rep, parts in split:
+        w = int(rep.split("tiles=")[1].split()[0]) if "tiles=" in rep else 0
+        if rep.startswith("find_pairs") and w:
+            per_tile = (parts.get("count", 0) + parts.get("extract", 0)) / w
+    return got[:2], wall, E.LAST_ROUTE, per_tile, split
+
+
+def start_probe():
+    """The tile route's start-up in this fresh process, step by step, as
+    a CLI run pays it: seconds to import torch, to ask for a card, to
+    start cuda:0, to import the port's kernels module and load
+    tile_match's library, and of a first and a second find_pairs -d 1
+    -i on 2,000-row sets (the first launches load the kernels). Prints
+    them as JSON."""
+    t = [time.perf_counter()]
+    steps = {}
+
+    def lap(label):
+        t.append(time.perf_counter())
+        steps[label] = t[-1] - t[-2]
+
+    import torch
+
+    lap("import torch")
+    torch.cuda.is_available()
+    lap("torch.cuda.is_available")
+    torch.zeros(1, device="cuda:0")
+    torch.cuda.synchronize()
+    lap("start cuda:0")
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    lap("import the port's engine and kernels")
+    K.load_library("tile_match")
+    lap("load tile_match's library")
+    a, b = workload(2000)
+    lap("make 2,000-row sets")
+    for label in ("first find_pairs -d 1 -i", "second find_pairs -d 1 -i"):
+        E.find_pairs(a, b, E.MatchSpec(1, True, False), device="cuda:0")
+        torch.cuda.synchronize()
+        lap(label)
+    print(json.dumps(steps))
+
+
+def start_walls():
+    """start_probe's steps from a fresh process, with the wall of the
+    whole process and of an empty one beside them."""
+    res = []
+    for _ in range(1):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "pass"], check=True,
+                       timeout=600)
+        empty = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.start_probe()"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"start probe: {proc.stderr[-3000:]}")
+        steps = json.loads(proc.stdout.strip().splitlines()[-1])
+        # what the route adds before its work: every step but the sets,
+        # and of the first find_pairs what the second does not take
+        startup = (sum(v for k, v in steps.items()
+                       if "find_pairs" not in k and "sets" not in k)
+                   + steps["first find_pairs -d 1 -i"]
+                   - steps["second find_pairs -d 1 -i"])
+        res.append({"process_s": wall, "empty_process_s": empty,
+                    "steps_s": steps, "startup_s": startup})
+        print(f"  the tile route's start-up in a fresh process: {startup:.6f}"
+              f" s ({wall:.6f} s the whole process, an empty one "
+              f"{empty:.6f} s); by step (s) {steps}")
+    return res
+
+
+def no_slower(a, b):
+    """Walls a no slower than walls b beyond their repeats' spread: the
+    best of a at most the best of b plus the larger spread."""
+    spread = max(max(a) - min(a), max(b) - min(b))
+    return min(a) <= min(b) + spread
+
+
+def crossover(rows, wins):
+    """The first of rows (ascending) from which wins[i] holds at every
+    row on; None when it fails at the last."""
+    first = None
+    for r, w in zip(reversed(rows), reversed(wins)):
+        if not w:
+            break
+        first = r
+    return first
+
+
+def phase_route_sweep(workdir):
+    """The routing sweep at SWEEP_ROWS rows a set of sweep_sets, timing
+    only but for the checks that every alternative gives the same
+    pairs or bytes:
+
+    find_pairs on the card, SWEEP_REPS calls of each alternative in
+    turns: the host route (COMPAIRR_PIGEONHOLE=all) against the tile
+    route (=0) at 128-row and 512-row tiles for -d 1, -d 2 and -d 3, and
+    128 against 512 for -d 1 -i (phase 19 does so under -g). Then, at
+    SWEEP_CLI_ROWS, the CLI in a fresh process a run (`python -m
+    compairr_tpu_torch`, the import of torch and the card's start
+    included) for each of SWEEP_CLI on TSVs of the sets (-x: set 1's
+    first repertoire against set 2; -c: set 2) on the host route, the
+    tile route and the default (engine.card_route: the host, which each
+    run must take). The crossovers are printed beside the rule and the
+    tile: rows of both sets from which the tile route beats the host
+    route at every larger size, with the card started and in a fresh
+    process (card_route keeps substitution runs on the host while a
+    fresh process finds none), and rows a set from which 512-row tiles
+    are no slower than 128-row ones beyond their repeats' spread
+    (engine._pair_plan takes 512 on the card at every size)."""
+    from compairr_tpu_torch.ops import engine as E
+
+    spec_i = E.MatchSpec(1, True, False)
+    subs = {f"-d {d}": E.MatchSpec(d, False, False) for d in (1, 2, 3)}
+    res = {"find_pairs": {}, "cli": {}}
+    for n in SWEEP_ROWS:
+        t0 = time.perf_counter()
+        a, b = sweep_sets(n)
+        cases = [(label, spec, (("host", "all", None), ("tile 128", "0", 128),
+                                ("tile 512", "0", 512)))
+                 for label, spec in subs.items()]
+        cases.append(("-d 1 -i", spec_i, (("tile 128", "0", 128),
+                                          ("tile 512", "0", 512))))
+        for label, spec, alts in cases:
+            r = res["find_pairs"].setdefault(label, {}).setdefault(n, {})
+            want = None
+            for _ in range(SWEEP_REPS):
+                for alt, ph, tile in alts:
+                    got, wall, route, per_tile, split = fp_run(a, b, spec,
+                                                               ph, tile)
+                    if want is None:
+                        want = got
+                    elif not pairs_equal((*got, None), (*want, None)):
+                        raise AssertionError(f"{n} rows, {label}: {alt} "
+                                             "gives other pairs")
+                    x = r.setdefault(alt, {"wall_s": [], "route": route})
+                    x["wall_s"].append(wall)
+                    x["pairs"] = len(got[0])
+                    x["per_tile_s"] = per_tile
+                    x["phases"] = split
+            print(f"  find_pairs {label}, {n} rows a set: "
+                  + "; ".join(f"{alt} ({x['route']}) {min(x['wall_s']):.6f}"
+                              f" s (walls {x['wall_s']}"
+                              + (f", count+extract {x['per_tile_s'] * 1e6:.4f}"
+                                 " us a tile" if x["per_tile_s"] else "")
+                              + ")" for alt, x in r.items())
+                  + f"; {x['pairs']} pairs, equal")
+        if n not in SWEEP_CLI_ROWS:
+            print(f"  {n} rows a set: {time.perf_counter() - t0:.1f} s")
+            continue
+        files = {k: os.path.join(workdir, f"sweep_{k}.tsv") for k in "abq"}
+        write_tsv(a, files["a"])
+        write_tsv(b, files["b"])
+        write_tsv(subset(a, np.nonzero(a.rep_no == 0)[0]), files["q"])
+        rows = {"ab": a.n + b.n, "qb": int((a.rep_no == 0).sum()) + b.n,
+                "b": 2 * b.n}
+        del a, b
+        for tag, flags, which in SWEEP_CLI:
+            r = res["cli"].setdefault(tag, {}).setdefault(
+                n, {"rows": rows[which]})
+            want = None
+            for alt, ph in SWEEP_ROUTES:
+                out, wall, err = module_timed(
+                    flags, [files[k] for k in which],
+                    os.path.join(workdir, "sweep.out"),
+                    {"COMPAIRR_PIGEONHOLE": ph, "COMPAIRR_DEVICE": None,
+                     "COMPAIRR_TIMING": "1"})
+                if want is None:
+                    want = out
+                    if out.count(b"\n") < 2:
+                        raise AssertionError(f"{tag}, {n} rows: empty output")
+                elif out != want:
+                    raise AssertionError(f"{tag}, {n} rows: the {alt} "
+                                         "route's output differs")
+                route = ("tiles" if any(rep.startswith("find_pairs tiles")
+                                        for rep, _ in parse_timing(err))
+                         else "host")
+                r[alt] = {"wall_s": wall, "route": route}
+            if r["default"]["route"] != "host":
+                raise AssertionError(f"{tag}, {n} rows: the default took "
+                                     f"{r['default']['route']}, not the "
+                                     "host route (engine.card_route)")
+            print(f"  CLI {tag}, {n} rows a set ({rows[which]} rows of both "
+                  "sets), a fresh process a run: "
+                  + "; ".join(f"{alt} ({r[alt]['route']}) "
+                              f"{r[alt]['wall_s']:.6f} s"
+                              for alt, _ in SWEEP_ROUTES)
+                  + "; byte-equal")
+        print(f"  {n} rows a set: {time.perf_counter() - t0:.1f} s")
+
+    # the crossovers, beside the constants
+    fp, cli = res["find_pairs"], res["cli"]
+    cross = {"find_pairs": {}, "cli": {}, "tile_512": {}}
+    for label in subs:
+        wins = [min(min(fp[label][n][t]["wall_s"])
+                    for t in ("tile 128", "tile 512"))
+                < min(fp[label][n]["host"]["wall_s"]) for n in SWEEP_ROWS]
+        c = crossover(SWEEP_ROWS, wins)
+        cross["find_pairs"][label] = None if c is None else 2 * c
+    for tag, _, _ in SWEEP_CLI:
+        rows = [cli[tag][n]["rows"] for n in SWEEP_CLI_ROWS]
+        wins = [cli[tag][n]["tile"]["wall_s"] < cli[tag][n]["host"]["wall_s"]
+                for n in SWEEP_CLI_ROWS]
+        cross["cli"][tag] = crossover(rows, wins)
+    for label in [*subs, "-d 1 -i"]:
+        wins = [no_slower(fp[label][n]["tile 512"]["wall_s"],
+                          fp[label][n]["tile 128"]["wall_s"])
+                for n in SWEEP_ROWS]
+        cross["tile_512"][label] = crossover(SWEEP_ROWS, wins)
+    res["crossovers"] = cross
+    res["constants"] = {"TILES_PER_DEVICE_MIN": E.TILES_PER_DEVICE_MIN}
+    print("  card_route: substitution runs on the host at any size; the "
+          "tile route beats the host route from (rows of both sets; None: "
+          "not at the largest size): with the card started (find_pairs) "
+          f"{cross['find_pairs']}; in a fresh process (the CLI) "
+          f"{cross['cli']}")
+    print("  engine._pair_plan: 512-row tiles on the card at every size; "
+          "512-row tiles are no slower than 128-row ones, beyond the spread of their "
+          f"repeats, from (rows a set): {cross['tile_512']}")
     return res
 
 
@@ -1451,6 +1737,125 @@ def cold_wall(label, n):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def cold_cli(argv, tiles_per_device):
+    """One CLI run, cli.main(argv), in this fresh process over the local
+    cards (COMPAIRR_DEVICES caps them), with engine.TILES_PER_DEVICE_MIN
+    set to tiles_per_device and cuda:0 started before the clock, so that
+    each other card's first use is part of the wall. Prints its wall,
+    route and count_tiles launches as JSON."""
+    import torch
+
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    torch.zeros(1, device="cuda:0")  # the process's CUDA start, paid alike
+    torch.cuda.synchronize()
+    E.TILES_PER_DEVICE_MIN = tiles_per_device
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"wall_s": wall, "rc": rc, "route": E.LAST_ROUTE,
+                      "count_tiles": K.LAUNCHES["count_tiles"]}))
+
+
+def cold_cli_wall(argv, tiles_per_device, cards, pigeonhole=None):
+    """cold_cli's result and the output's bytes, from a process of its
+    own that sees `cards` cards (None: all), under COMPAIRR_PIGEONHOLE
+    =pigeonhole (None: unset)."""
+    env_run = dict(os.environ, COMPAIRR_TIMING="1")
+    for k in ("COMPAIRR_PIGEONHOLE", "COMPAIRR_DEVICE", "COMPAIRR_ENGINE"):
+        env_run.pop(k, None)
+    if pigeonhole is not None:
+        env_run["COMPAIRR_PIGEONHOLE"] = pigeonhole
+    if cards is None:
+        env_run.pop("COMPAIRR_DEVICES", None)
+    else:
+        env_run["COMPAIRR_DEVICES"] = str(cards)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.cold_cli({argv!r}, "
+         f"{tiles_per_device})"],
+        cwd=HERE, env=env_run, capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"cold CLI {argv}: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["phases"] = [x for x in parse_timing(proc.stderr)
+                     if x[0].startswith("find_pairs")]
+    with open(argv[argv.index("-o") + 1], "rb") as f:
+        return out, f.read()
+
+
+def phase_cold_tiles(d1, d2i, cards):
+    """Phase 21's fresh-process walls of the tile route's CLI runs:
+    -m -d 1 -i on the indel workload (d1, d2i), -g -d 1 -i on the same
+    sets, and -m -d 2 on sweep_sets(COLD_D2_ROWS) under
+    COMPAIRR_PIGEONHOLE=0, each on one card, on all `cards` split at
+    TILES_PER_DEVICE_SPLIT tiles a card, and on all at
+    engine.TILES_PER_DEVICE_MIN, twice in turns, every output
+    byte-equal. From the one-card and split walls: a card's first-use
+    cost, (split - one) / (cards - 1), and the threshold it gives over
+    the run's count+extract seconds a tile."""
+    from compairr_tpu_torch.ops import engine as E
+
+    a2, b2 = sweep_sets(COLD_D2_ROWS)
+    variants = (("one card", E.TILES_PER_DEVICE_MIN, 1),
+                (f"{cards} cards, split", TILES_PER_DEVICE_SPLIT, None),
+                (f"{cards} cards, TILES_PER_DEVICE_MIN",
+                 E.TILES_PER_DEVICE_MIN, None))
+    res = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        files = {}
+        for k, db in (("a", d1), ("b", d2i), ("a2", a2), ("b2", b2)):
+            files[k] = os.path.join(workdir, f"cold_{k}.tsv")
+            write_tsv(db, files[k])
+        del a2, b2
+        out = os.path.join(workdir, "cold.out")
+        # a fresh process keeps -d 2 on the host (engine.card_route), so
+        # its tile route runs under COMPAIRR_PIGEONHOLE=0
+        runs = (
+            ("-m -d 1 -i", ["-m", "-d", "1", "-i"], "ab", None),
+            ("-g -m -d 1 -i", ["-g", "-m", "-d", "1", "-i"], "ab", None),
+            (f"-m -d 2, {COLD_D2_ROWS} rows a set, COMPAIRR_PIGEONHOLE=0",
+             ["-m", "-d", "2"], ("a2", "b2"), "0"),
+        )
+        for label, flags, which, pigeonhole in runs:
+            argv = [*flags, *(files[k] for k in which), "-o", out]
+            r = res[label] = {}
+            want = None
+            for _ in range(2):
+                for vlabel, tpd, n in variants:
+                    got, data = cold_cli_wall(argv, tpd, n, pigeonhole)
+                    if got["rc"] != 0 or got["route"] != "tiles":
+                        raise AssertionError(f"cold {label} {vlabel}: {got}")
+                    if want is None:
+                        want = data
+                    elif data != want:
+                        raise AssertionError(f"cold {label} {vlabel}: "
+                                             "output differs")
+                    r.setdefault(vlabel, []).append(got)
+    for label, r in res.items():
+        walls = {v: [x["wall_s"] for x in r[v]] for v, _, _ in variants}
+        one, split = (min(walls[v]) for v, _, _ in variants[:2])
+        rep, parts = r["one card"][0]["phases"][-1]
+        tiles = int(rep.split("tiles=")[1].split()[0])
+        per_tile = (parts["count"] + parts["extract"]) / max(tiles, 1)
+        first_use = (split - one) / (cards - 1)
+        r.update(first_use_s=first_use, per_tile_s=per_tile,
+                 threshold_tiles=first_use / per_tile)
+        print(f"  {label}, a fresh process a run (walls, s): "
+              + "; ".join(f"{v} {walls[v]} (count_tiles launches "
+                          f"{r[v][0]['count_tiles']})"
+                          for v, _, _ in variants)
+              + f"; {tiles} tiles, count+extract {per_tile * 1e6:.4f} us a "
+              f"tile on one card; first use {first_use:.6f} s a card, so "
+              f"about {first_use / per_tile:.0f} tiles a card "
+              f"(TILES_PER_DEVICE_MIN {E.TILES_PER_DEVICE_MIN}); byte-equal")
+    return res
+
+
 def launch_ms(fn, kernel):
     """Device milliseconds of each launch of the CUDA kernels whose name
     holds `kernel` in one call of fn(), in launch order, from
@@ -1492,9 +1897,14 @@ def main(argv) -> int:
     import torch
 
     only = None  # --phases N,M: phases 1, 2 and these alone
+    # --cold-tiles: phase 21 also times fresh CLI processes on one card
+    # against all (phase_cold_tiles), which TILES_PER_DEVICE_MIN rests on
+    cold_tiles = "--cold-tiles" in argv
+    argv = [a for a in argv if a != "--cold-tiles"]
     if argv:
         if len(argv) != 2 or argv[0] != "--phases":
-            print("usage: chip_smoke.py [--phases N[,N...]]", file=sys.stderr)
+            print("usage: chip_smoke.py [--phases N[,N...]] [--cold-tiles]",
+                  file=sys.stderr)
             return 2
         only = {"1", "2", *argv[1].split(",")}
     if not torch.cuda.is_available():
@@ -1670,13 +2080,15 @@ def main(argv) -> int:
     g_pairs = {}
 
     def p6():
+        # the route's own tile, and the other one
+        other = OTHER_TILE[E._pair_plan(d1, d2i, spec_i, "cuda")[0]]
         cases = [
             ("two sets -d 1 -i", (d1, d2i, spec_i), {}, {}),
             ("self -d 1 -i", (d1s, d1s, spec_self), {},
              {"xselfs": (True, False)}),
             ("two sets -d 2", (d1, d2, spec_d2), {}, {"ds": (1, 2, 3)}),
-            ("two sets -d 1 -i, tile 512", (d1, d2i, spec_i), {"tile": 512},
-             {}),
+            (f"two sets -d 1 -i, tile {other}", (d1, d2i, spec_i),
+             {"tile": other}, {}),
             ("nucleotides, lpad 48", (*nt_pair(20_000, 16), spec_i), {}, {}),
         ]
         res = {"count_max_abs_err": 0, "records_differing": 0, "cases": {}}
@@ -1868,12 +2280,23 @@ def main(argv) -> int:
     report["cli_tiles"] = phase("11 CLI tile route", p11)
 
     def p12():
-        res = {"tile_size": {
-            f"{N_ROWS}": phase_tile_size(d1, d2i, spec_i)}}
-        a4, b4 = workload(4 * N_ROWS)
-        b4 = with_planted(a4, b4, INDEL_FRAC, INDEL_SEED, (1, 2))
-        res["tile_size"][f"{4 * N_ROWS}"] = phase_tile_size(a4, b4, spec_i)
-        del a4, b4
+        start = start_walls()
+        res = phase_route_sweep(workdir.name)
+        res["start"] = start
+        # what a fresh process would pay for the card against the most
+        # the tile route saved in the sweep (host - best tile)
+        saved = {
+            (label, n): min(r["host"]["wall_s"]) - min(
+                min(r[t]["wall_s"]) for t in ("tile 128", "tile 512"))
+            for label, by_n in res["find_pairs"].items()
+            for n, r in by_n.items() if "host" in r}
+        (label, n), most = max(saved.items(), key=lambda kv: kv[1])
+        print(f"  a fresh process: the tile route's start-up "
+              f"{min(x['startup_s'] for x in start):.6f}-"
+              f"{max(x['startup_s'] for x in start):.6f} s, against the most "
+              f"it saved in this sweep, {most:.6f} s (find_pairs {label}, "
+              f"{n} rows a set): card_route keeps substitution runs on the "
+              "host")
         res["prefetch"] = phase_prefetch(workdir.name, d1, d2i)
         return res
 
@@ -2325,19 +2748,32 @@ def main(argv) -> int:
 
     def p19():
         res = {}
+        own_pairs = {}
         cut = [subset(x, np.arange(G_ROWS)) for x in (d1, d2i)]
         for rows, (a, b) in ((G_ROWS, cut), (N_ROWS, (d1, d2i))):
             for tag, (spec, pigeonhole) in G_TILE_RUNS.items():
                 label = f"-g {tag}, {rows} rows a set"
                 with env(COMPAIRR_PIGEONHOLE=pigeonhole):
                     res[label], pairs = tile_route_timing(a, b, spec, label)
+                own_pairs[label] = pairs
                 if rows == N_ROWS:
                     g_pairs[tag] = pairs
-        # the same 1M run at tile 512: the worklist's size at the other tile
-        label = f"-g -d 1 -i, {N_ROWS} rows a set, tile 512"
-        with patched(E, "BIG_TILE_ROWS", 0):
-            res[label], _ = tile_route_timing(
-                d1, d2i, G_TILE_RUNS["-d 1 -i"][0], label)
+        # the -d 1 -i runs again at the other tile (the routing sweep's
+        # 128 against 512 under -g), each with the same pairs
+        for rows, (a, b) in ((G_ROWS, cut), (N_ROWS, (d1, d2i))):
+            own = res[f"-g -d 1 -i, {rows} rows a set"]
+            other = OTHER_TILE[own["tile"]]
+            label = f"-g -d 1 -i, {rows} rows a set, tile {other}"
+            with forced_tile(other):
+                res[label], pairs = tile_route_timing(
+                    a, b, G_TILE_RUNS["-d 1 -i"][0], label)
+            if not pairs_equal((*pairs, None), (
+                    *own_pairs[f"-g -d 1 -i, {rows} rows a set"], None)):
+                raise AssertionError(f"{label}: other pairs than at tile "
+                                     f"{own['tile']}")
+            print(f"  -g -d 1 -i, {rows} rows a set: find_pairs "
+                  f"{own['find_pairs_s']:.6f} s at tile {own['tile']}, "
+                  f"{res[label]['find_pairs_s']:.6f} s at {other}")
         return res
 
     report["tiles_g"] = phase("19 tile route under -g (timing)", p19)
@@ -2557,15 +2993,19 @@ def main(argv) -> int:
                   f"{m.sum()}, largest relative difference {err:.3g} "
                   f"(limit {rtol}); {launches} launches, {wall:.6f} s")
 
-        want_launches, sizes = count_spans(d1, d2i, spec_i, 4)
-        one = E.find_pairs(d1, d2i, spec_i, devices=devs(1), want_dist=False)
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        got = E.find_pairs(d1, d2i, spec_i, devices=devs(4),
-                           want_dist=False)
-        wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        # the split itself, at the smallest threshold that splits this
+        # worklist (TILES_PER_DEVICE_MIN is far above its tiles a card)
+        with patched(E, "TILES_PER_DEVICE_MIN", TILES_PER_DEVICE_SPLIT):
+            want_launches, sizes = count_spans(d1, d2i, spec_i, 4)
+            one = E.find_pairs(d1, d2i, spec_i, devices=devs(1),
+                               want_dist=False)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            got = E.find_pairs(d1, d2i, spec_i, devices=devs(4),
+                               want_dist=False)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
         if E.LAST_ROUTE != "tiles" or not pairs_equal(got, one):
             raise AssertionError("find_pairs over 4 devices differs")
         if launches["count_tiles"] != want_launches:
@@ -2577,6 +3017,13 @@ def main(argv) -> int:
               f"equal to one device's; count_tiles {launches['count_tiles']}"
               f" launches (streams {sizes}), extract_tiles "
               f"{launches['extract_tiles']}; {wall:.6f} s")
+
+        # the tile route's CLI runs in a fresh process a run: one card
+        # against every card, split at TILES_PER_DEVICE_SPLIT tiles a
+        # card (the split the parent's threshold took) and at
+        # engine.TILES_PER_DEVICE_MIN, in turns; each the same bytes
+        if len(local) > 1 and cold_tiles:
+            res["cold_tiles"] = phase_cold_tiles(d1, d2i, len(local))
 
         out_dir = os.path.join(HERE, "chiprun_out", "ranks")
         os.makedirs(out_dir, exist_ok=True)
@@ -2678,13 +3125,18 @@ def main(argv) -> int:
                                      f"checksum {total}")
             return m
 
+        # the default routing (card_route: the host pigeonhole), against
+        # the tile route forced
         host = route("host", COMPAIRR_PIGEONHOLE=None)
         tiles = route("tile", COMPAIRR_PIGEONHOLE="0")
         tl, tile = res["tile"]["launches"], res["tile"]["tile"]
-        print(f"    tile route: {tile}-row tiles (BIG_TILE_ROWS "
-              f"{E.BIG_TILE_ROWS}); count_tiles {tl['count_tiles']}, "
-              f"extract_tiles {tl['extract_tiles']} launches over the "
-              f"bench's runs")
+        print(f"    tile route: {tile}-row tiles; count_tiles "
+              f"{tl['count_tiles']}, extract_tiles {tl['extract_tiles']} "
+              "launches over the bench's runs")
+        if res["host"]["route"] != "pigeonhole" or any(
+                res["host"]["launches"].values()):
+            raise AssertionError(f"default route: {res['host']['route']}, "
+                                 f"launches {res['host']['launches']}")
         if res["tile"]["route"] != "tiles" or tile != 512 or min(
                 tl["count_tiles"], tl["extract_tiles"]) < 1:
             raise AssertionError(f"tile route: {res['tile']}")

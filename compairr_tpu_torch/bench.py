@@ -450,6 +450,9 @@ def main():
         "wall_s": wall,
         "matched_pairs": npairs,
         "matrix_checksum": checksum,
+        # the route find_pairs took (engine.LAST_ROUTE): "pigeonhole"
+        # by default, "tiles" under COMPAIRR_PIGEONHOLE=0
+        "route": E.LAST_ROUTE,
     }
     if on_card:
         import torch

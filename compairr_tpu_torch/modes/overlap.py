@@ -226,9 +226,11 @@ def overlap(
             "score exactly; using the default engine\n"
         )
         use_dense = False
-    # start the tile route's device work now (ops/engine.py
-    # prefetch_find_pairs) so it overlaps the host-side duplicate check
-    # below. COMPAIRR_ENGINE=dense never consumes it, so it is skipped.
+    # start the tile route now, on a worker, for every run that
+    # engine.card_route sends there (one-indel runs, and every run under
+    # COMPAIRR_PIGEONHOLE=0; ops/engine.py prefetch_find_pairs), so that
+    # it overlaps the host-side duplicate check below; host routes start
+    # nothing. COMPAIRR_ENGINE=dense never consumes it, so it is skipped.
     if not use_dense:
         from ..ops.engine import prefetch_find_pairs
 

@@ -192,6 +192,7 @@ def test_main_on_the_cpu_prints_one_json_line(own_tmp, monkeypatch, capsys):
                 "route_tiles_per_device_min"):
         assert key in out, key
     assert out["device_kind"] == "cpu" and out["power_limit_w"] is None
+    assert out["route"] == "pigeonhole"  # the default route at -d 2
     assert "kernel_checksum" not in out  # the kernel section is card-only
     d = _jax_headline_db(4096)
     from compairr_tpu.constants import SCORE_PRODUCT

@@ -1137,6 +1137,50 @@ def test_find_pairs_device_split_cuda_equals_one_device(cuda, monkeypatch):
     assert len(want[0]) > 0
 
 
+@pytest.mark.parametrize("mode", [None, "0"], ids=["default", "tiles"])
+def test_substitution_route_on_the_card(cuda, monkeypatch, mode):
+    """A -d 2 run of 200,000 rows a set, no device named, with the card
+    already started: by default (engine.card_route) it stays on the
+    host pigeonhole and launches nothing; under COMPAIRR_PIGEONHOLE=0 it
+    takes the tile route at 512-row tiles and launches count_tiles and
+    extract_tiles. Both give the pairs of COMPAIRR_PIGEONHOLE=all."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.bench import kernel_sets
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    monkeypatch.delenv("COMPAIRR_DEVICE", raising=False)
+    if mode is None:
+        monkeypatch.delenv("COMPAIRR_PIGEONHOLE", raising=False)
+    else:
+        monkeypatch.setenv("COMPAIRR_PIGEONHOLE", mode)
+    d1, d2 = kernel_sets(200_000)
+    spec = E.MatchSpec(2, False, False)
+    torch.zeros(1, device=cuda)  # the card started changes no route
+    K.reset_launches()
+    got = E.find_pairs(d1, d2, spec, want_dist=False)
+    launches = dict(K.LAUNCHES)
+    if mode == "0":
+        assert E.LAST_ROUTE == "tiles" and E.LAST_TILE == 512
+        assert launches["count_tiles"] >= 1 and launches["extract_tiles"] >= 1
+    else:
+        assert E.LAST_ROUTE == "pigeonhole"
+        assert sum(launches.values()) == 0, launches
+    monkeypatch.setenv("COMPAIRR_PIGEONHOLE", "all")
+    want = E.find_pairs(d1, d2, spec, want_dist=False)
+    assert E.LAST_ROUTE == "pigeonhole"
+
+    def key(r):
+        o = np.lexsort((r[1], r[0]))
+        return r[0][o], r[1][o]
+
+    for g, w in zip(key(got), key(want)):
+        np.testing.assert_array_equal(g, w)
+    assert len(want[0]) > 0
+
+
 @pytest.mark.parametrize("planted", [False, True])
 def test_entry_on_card_equals_dense_span(cuda, planted):
     """The entry point on the card: one dense_match launch, its

@@ -553,18 +553,18 @@ class _Fake:
 
 
 def test_route_profile_and_pair_plan():
-    """The routing constants (the JAX package's round-trip-scaled rules,
-    clamped as a local card's sub-millisecond round trip clamps them):
-    512-row tiles on CUDA above 4M rows a set, 128 below and on the
-    CPU."""
+    """The routing constants, measured on an H100 (chip_smoke.py phases
+    12, 19 and --cold-tiles): 512-row tiles on CUDA at every size, 128
+    on the CPU and where a tile is asked for; another card only from 3M
+    worklist tiles a card."""
     spec = teng.MatchSpec(1, True, False)
-    assert teng.BIG_TILE_ROWS == 4_000_000
-    assert teng.TILES_PER_DEVICE_MIN == 2
-    plan = teng._pair_plan(_Fake(4_000_000), _Fake(10), spec, "cuda")
+    assert teng.TILES_PER_DEVICE_MIN == 3_000_000
+    for n1, n2 in ((1, 1), (4_000_000, 10), (1, 4_000_001)):
+        assert teng._pair_plan(_Fake(n1), _Fake(n2), spec, "cuda")[:2] == (
+            512, 2048
+        )
+    plan = teng._pair_plan(_Fake(4_000_000), _Fake(10), spec, "cuda", 128)
     assert plan == (128, 32768, 16, True, True)
-    assert teng._pair_plan(_Fake(1), _Fake(4_000_001), spec, "cuda")[:2] == (
-        512, 2048
-    )
     # the CPU keeps 128 tiles
     assert teng._pair_plan(_Fake(9_000_000), _Fake(1), spec, "cpu")[0] == 128
     # lpad rounds the longest sequence up to 8; -g and -d 2 drop the
@@ -574,9 +574,10 @@ def test_route_profile_and_pair_plan():
 
 
 def test_prefetch_joins_and_reraises(dbs, monkeypatch):
-    """The indel prefetch computes find_pairs on a worker that the next
-    call joins; a failure on the worker is re-raised there, not
-    recomputed."""
+    """The prefetch computes find_pairs on a worker that the next call
+    joins; a failure on the worker is re-raised there, not recomputed.
+    It starts for the runs that card_route sends to the tile route and
+    for no other."""
     (_, _), (t1, t2) = dbs
     monkeypatch.setenv("COMPAIRR_DEVICE", "cpu")
     monkeypatch.delenv("COMPAIRR_PIGEONHOLE", raising=False)
@@ -595,11 +596,19 @@ def test_prefetch_joins_and_reraises(dbs, monkeypatch):
     with pytest.raises(RuntimeError, match="worker failed"):
         teng.find_pairs(t1, t2, spec)
 
-    # runs without indels, and host routes, prefetch nothing
+    # a -d 2 run prefetches where it takes the tile route (=0; on the
+    # CPU the rule keeps it on the host otherwise), and host routes
+    # prefetch nothing
     monkeypatch.undo()
     monkeypatch.setenv("COMPAIRR_DEVICE", "cpu")
+    d2 = teng.MatchSpec(2, False, False)
     monkeypatch.setenv("COMPAIRR_PIGEONHOLE", "0")
-    teng.prefetch_find_pairs(t1, t2, teng.MatchSpec(2, False, False))
+    teng.prefetch_find_pairs(t1, t2, d2)
+    assert teng._RESULT_PREFETCH
+    teng.find_pairs(t1, t2, d2, want_dist=False)
+    assert not teng._RESULT_PREFETCH and teng.LAST_ROUTE == "tiles"
+    monkeypatch.delenv("COMPAIRR_PIGEONHOLE")
+    teng.prefetch_find_pairs(t1, t2, d2)
     assert not teng._RESULT_PREFETCH
     monkeypatch.setenv("COMPAIRR_PIGEONHOLE", "all")
     teng.prefetch_find_pairs(t1, t2, spec)
