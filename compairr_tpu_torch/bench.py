@@ -203,7 +203,7 @@ def headline_matrix(d1):
 
     spec = MatchSpec(differences=2, indels=False, ignore_genes=False)
     r = d1.repertoire_count
-    tm = _PhaseTimer()
+    tm = _PhaseTimer("bench")
     tm.mark()
     idx1, idx2, _dist = find_pairs(d1, d1, spec)
     tm.lap("find_pairs")

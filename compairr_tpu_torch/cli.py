@@ -443,7 +443,15 @@ def main(argv: Optional[list[str]] = None, devices=None) -> int:
     """Run the command line `argv` (by default sys.argv[1:]). `devices`
     is the device routes' device list, as find_pairs and
     dense_matrix_sharded take it (by default utils.device.local_devices,
-    and on the dense engine rank_devices)."""
+    and on the dense engine rank_devices). Under COMPAIRR_TIMING=1 the
+    run is one job of utils.trace: the root of its span tree."""
+    from .utils import trace
+
+    with trace.job():
+        return _main(argv, devices)
+
+
+def _main(argv: Optional[list[str]], devices) -> int:
     if argv is None:
         argv = sys.argv[1:]
 

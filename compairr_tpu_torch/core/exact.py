@@ -15,6 +15,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import trace
 from .db import SeqDB
 
 
@@ -161,13 +162,15 @@ def count_duplicates(
     match join needs the same one), pass it as match_groups: the
     repertoire refinement then only groups int64 pairs instead of
     re-hashing every residue row."""
-    if match_groups is not None:
-        return db.n - count_refined_groups(match_groups, db.rep_no)
-    _, n_groups = group_ids(
-        db, include_genes=include_genes, include_rep=True,
-        progress=progress,
-    )
-    return db.n - n_groups
+    with trace.span("core.dup") as sp:
+        sp.count("rows", db.n)
+        if match_groups is not None:
+            return db.n - count_refined_groups(match_groups, db.rep_no)
+        _, n_groups = group_ids(
+            db, include_genes=include_genes, include_rep=True,
+            progress=progress,
+        )
+        return db.n - n_groups
 
 
 def count_refined_groups(groups: np.ndarray, extra: np.ndarray) -> int:

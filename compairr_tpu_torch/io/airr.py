@@ -24,6 +24,7 @@ import numpy as np
 from ..config import Options
 from ..constants import MAP_AA, MAP_NT
 from ..core.db import GeneTables, LazyStrList, SeqDB
+from ..utils import trace
 from ..utils.progress import Logger, fatal
 
 _BAD = 0xFF  # translate-table marker for unmapped symbols
@@ -164,7 +165,22 @@ def read_db(
     shard=(k, n) reads only the k-th of n deterministic line-aligned
     byte chunks — the per-host input sharding of a multi-host run
     (requires the native parser).
+
+    Traced as the span io.parse (rows, input bytes).
     """
+    with trace.span("io.parse") as sp:
+        db = _read_db(filename, opt, genes, logger, require_sequence_id,
+                      default_repertoire_id, shard)
+        if sp:
+            sp.count("rows", db.n)
+            if filename and filename != "-" and os.path.isfile(filename):
+                sp.count("input_bytes", os.path.getsize(filename))
+        return db
+
+
+def _read_db(filename, opt, genes, logger, require_sequence_id,
+             default_repertoire_id, shard) -> SeqDB:
+    """read_db without its span."""
     if (
         filename
         and filename != "-"

@@ -35,12 +35,15 @@ This module imports no torch: host-only routes never load it.
 from __future__ import annotations
 
 import os
+import sys
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
 from ..core.db import SeqDB
+from ..utils import trace
 from ..utils.progress import Logger
 from .sparse_host import (  # noqa: F401  (exact_match_groups re-exported)
     _find_pairs_exact,
@@ -64,40 +67,58 @@ LAST_TILE: Optional[int] = None
 def _note_route(name: str, tile: Optional[int] = None) -> None:
     global LAST_ROUTE, LAST_TILE
     LAST_ROUTE, LAST_TILE = name, tile
+    trace.note("route", name)
+    if tile is not None:
+        trace.note("tile", tile)
 
 
 class _PhaseTimer:
-    """Opt-in coarse phase timing (COMPAIRR_TIMING=1): prints
-    cumulative wall per labelled phase to stderr at the end of the run.
-    Zero overhead when disabled. Host clock only: a lap that enqueues
-    device work measures the enqueue, not the kernel."""
+    """Opt-in coarse phase timing (COMPAIRR_TIMING=1), a front end of
+    utils.trace: each lap records the span from the previous mark or
+    lap to now under the current span, named <layer>.<label> (the label
+    alone without a layer), with the counts add() gave it; report
+    prints the laps' wall summed per label to stderr. One flag check
+    when disabled. Host clock only: a lap that enqueues device work
+    measures the enqueue, not the kernel. enabled and _t (the last mark
+    or lap, perf_counter seconds) are read by the benchmark's recorder
+    (portbench/trace.py)."""
 
-    def __init__(self) -> None:
-        self.enabled = os.environ.get("COMPAIRR_TIMING") == "1"
+    def __init__(self, layer: str = "") -> None:
+        self.enabled = trace.refresh()
         self._t = 0.0
-        self._acc: dict[str, float] = {}
+        self._ns = 0
+        self._prefix = f"{layer}." if layer else ""
+        self._laps: list = []
+        self._counts: list = []
 
     def mark(self) -> None:
         if self.enabled:
-            import time
+            self._ns = time.perf_counter_ns()
+            self._t = self._ns / 1e9
 
-            self._t = time.perf_counter()
+    def add(self, key: str, n) -> None:
+        """Add n to a count of the phase the next lap closes."""
+        if self.enabled:
+            self._counts.append((key, n))
 
     def lap(self, label: str) -> None:
         if self.enabled:
-            import time
-
-            now = time.perf_counter()
-            self._acc[label] = self._acc.get(label, 0.0) + (now - self._t)
-            self._t = now
+            now = time.perf_counter_ns()
+            sp = trace.record(self._prefix + label, self._ns, now)
+            for key, n in self._counts:
+                sp.count(key, n)
+            self._counts.clear()
+            self._laps.append((label, sp))
+            self._ns = now
+            self._t = now / 1e9
 
     def report(self, prefix: str) -> None:
-        if self.enabled and self._acc:
-            import sys
-
-            parts = " ".join(
-                f"{k}={v:.6f}s" for k, v in self._acc.items()
-            )
+        if self.enabled and self._laps:
+            acc: dict[str, float] = {}
+            for label, sp in self._laps:
+                if sp:  # NULL where COMPAIRR_TIMING changed meanwhile
+                    acc[label] = acc.get(label, 0.0) + (sp.t1 - sp.t0) / 1e9
+            parts = " ".join(f"{k}={v:.6f}s" for k, v in acc.items())
             print(f"[timing] {prefix}: {parts}", file=sys.stderr)
 
 
@@ -620,7 +641,7 @@ def dense_matrix(
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
-    tm = _PhaseTimer()
+    tm = _PhaseTimer("engine")
     tm.mark()
     plan = dense_plan(db1, db2, spec, score_int, ignore_counts, tile_m,
                       tile_n)
@@ -715,7 +736,7 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
     key int64[npad]), one for each set."""
     from . import kernels as K
 
-    tm = _PhaseTimer()
+    tm = _PhaseTimer("engine")
     tm.mark()
     order_a, key_a, npad_a = pack_keys(db1, tile, by_vjl)
     if db2 is db1:
@@ -734,8 +755,10 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
         orig[: db.n] = order
         return rows, orig, key
 
+    up0 = K.UPLOAD_BYTES
     a = side(db1, order_a, key_a, npad_a, 0)
     b = a if db2 is db1 else side(db2, order_b, key_b, npad_b, 2)
+    tm.add("upload_bytes", K.UPLOAD_BYTES - up0)
     tm.lap("rows_raw")
     tm.report(f"_sparse_inputs n={db1.n}/{db2.n}")
     return a, b
@@ -758,6 +781,7 @@ def prefetch_find_pairs(db1: SeqDB, db2: SeqDB, spec: MatchSpec,
     CLI's host-side duplicate check. Runs that take a host route
     prefetch nothing. A failure on the worker is stored and re-raised by
     the find_pairs call that joins it."""
+    import contextvars
     import threading
 
     from ..utils.device import resolve_device
@@ -776,7 +800,10 @@ def prefetch_find_pairs(db1: SeqDB, db2: SeqDB, spec: MatchSpec,
         except Exception as e:  # re-raised by the joining call
             holder[1] = e
 
-    thread = threading.Thread(target=run, daemon=True)
+    # under a copy of the caller's context, so that the worker's spans
+    # sit under the caller's current span (its job)
+    thread = threading.Thread(target=contextvars.copy_context().run,
+                              args=(run,), daemon=True)
     # insert BEFORE start so the worker's own find_pairs call sees the
     # entry and the current-thread check keeps it computing
     _RESULT_PREFETCH[(id(db1), id(db2), spec, want_dist)] = (
@@ -903,7 +930,8 @@ def find_pairs(
         and hit[2] is not threading.current_thread()
     ):
         _RESULT_PREFETCH.pop(rkey, None)
-        hit[2].join()
+        with trace.span("engine.join"):
+            hit[2].join()
         if hit[3][1] is not None:
             raise hit[3][1]
         res = hit[3][0]
@@ -913,6 +941,16 @@ def find_pairs(
             logger.progress_done()
         return res
 
+    with trace.span("engine.find_pairs"):
+        return _find_pairs_route(db1, db2, spec, logger, progress_prompt,
+                                 exact_groups, vj_prep, want_dist, device,
+                                 devices)
+
+
+def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
+                      vj_prep, want_dist, device, devices):
+    """find_pairs' computation (its docstring), on the route that
+    card_route picks."""
     if spec.differences == 0:
         _note_route("exact")
         return _find_pairs_exact(
@@ -971,7 +1009,7 @@ def find_pairs(
     if not devs:
         raise ValueError("the tile route needs at least one device")
     dev = devs[0]
-    tm = _PhaseTimer()
+    tm = _PhaseTimer("engine")
     tm.mark()
     tile, s_extract, lmax, by_vjl, use_indels = _pair_plan(
         db1, db2, spec, dev.type
@@ -1006,6 +1044,9 @@ def find_pairs(
     # The pair set is order-invariant.
     streams = [(order_colmajor(sw), c) for sw, c in streams if len(sw)]
     w = sum(len(sw) for sw, _ in streams)
+    if tm.enabled:
+        for sw, c in streams:
+            tm.add(f"tiles.{K.CLASS_NAMES[c]}", len(sw))
     tm.lap("worklist")
 
     if logger is not None and progress_prompt is not None:
@@ -1022,6 +1063,7 @@ def find_pairs(
         # phase 1: per-tile match counts, every stream's device spans
         # launched before the first copy back; empty tiles are dropped
         # and the exact counts size each extraction call's record buffer
+        up0 = K.UPLOAD_BYTES
         launched = []
         for sw, cls in streams:
             nd = max(1, min(n_dev, len(sw) // TILES_PER_DEVICE_MIN))
@@ -1036,6 +1078,10 @@ def find_pairs(
             counts = np.concatenate([c.cpu().numpy() for c in parts])
             nz = counts > 0
             filtered.append((sw[nz], counts[nz], cls))
+        if tm.enabled:
+            tm.add("upload_bytes", K.UPLOAD_BYTES - up0)
+            tm.add("tiles", w)
+            tm.add("tiles_matched", sum(len(fw) for fw, _, _ in filtered))
         tm.lap("count")
 
         # phase 2: greedy-pack tiles into slabs of <= s_extract tiles
@@ -1051,25 +1097,34 @@ def find_pairs(
         for fwork, tile_counts, cls in filtered:
             for s0, s1, k_slab in pack_slabs(tile_counts, s_extract, k_cap):
                 slab = fwork[s0:s1]
-                widx, wvals, cnt = K.extract_tiles(
-                    *replicas[di], K.upload_worklist(slab, devs[di]),
-                    cls=cls, k=k_slab, **kw,
-                )
+                with trace.span("kernels.extract") as sp:
+                    up0 = K.UPLOAD_BYTES
+                    widx, wvals, cnt = K.extract_tiles(
+                        *replicas[di], K.upload_worklist(slab, devs[di]),
+                        cls=cls, k=k_slab, **kw,
+                    )
+                    if sp:
+                        sp.count("words", cnt)
+                        sp.count("upload_bytes", K.UPLOAD_BYTES - up0)
                 di = (di + 1) % n_dev
                 if cnt:
-                    widx = widx.astype(np.int64)
-                    tz = widx // wpt
-                    mz = (widx % wpt) // wpr
-                    wc = widx % wpr
-                    ra = slab[tz, 0].astype(np.int64) + mz
-                    rb = slab[tz, 1].astype(np.int64) + wc * 32
-                    for b in range(32):
-                        sel = np.nonzero(
-                            (wvals >> np.uint32(b)) & np.uint32(1)
-                        )[0]
-                        if len(sel):
-                            out1.append(orig_a[ra[sel]])
-                            out2.append(orig_b[rb[sel] + b])
+                    with trace.span("engine.decode") as sp:
+                        n0 = len(out1)
+                        widx = widx.astype(np.int64)
+                        tz = widx // wpt
+                        mz = (widx % wpt) // wpr
+                        wc = widx % wpr
+                        ra = slab[tz, 0].astype(np.int64) + mz
+                        rb = slab[tz, 1].astype(np.int64) + wc * 32
+                        for b in range(32):
+                            sel = np.nonzero(
+                                (wvals >> np.uint32(b)) & np.uint32(1)
+                            )[0]
+                            if len(sel):
+                                out1.append(orig_a[ra[sel]])
+                                out2.append(orig_b[rb[sel] + b])
+                        if sp:
+                            sp.count("pairs", sum(len(x) for x in out1[n0:]))
                 done += len(slab)
                 if logger is not None and progress_prompt is not None:
                     logger.progress_update(done)
@@ -1082,8 +1137,10 @@ def find_pairs(
         i1 = np.concatenate(out1)
         i2 = np.concatenate(out2)
         dist = _pair_distances(db1, db2, i1, i2) if want_dist else None
+        tm.add("pairs", len(i1))
         tm.lap("distances")
         res = with_diagonal(i1, i2, dist)
+        tm.add("pairs", len(res[0]))
         tm.lap("diagonal")
         tm.report(f"find_pairs tiles={w} pairs={len(res[0])}")
         return res

@@ -56,6 +56,7 @@ from ..constants import (
     SCORE_PRODUCT,
     SCORE_RATIO,
 )
+from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -240,7 +241,7 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
     key[:n] = sort_key[:n]
 
     def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return upload(np.ascontiguousarray(x), device)
 
     o = up(order_full)
     k = up(key)
@@ -335,7 +336,7 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
     )
 
     def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return upload(np.ascontiguousarray(x), device)
 
     o = up(order_full)
     k = up(key)
@@ -357,11 +358,26 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
     return out
 
 
+# bytes upload() has copied to a card while tracing is on; engine reads
+# it by difference over a phase into that phase's upload_bytes
+UPLOAD_BYTES = 0
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """The contiguous array x as a tensor on `device`; a copy to a card
+    adds its bytes to UPLOAD_BYTES while tracing is on."""
+    global UPLOAD_BYTES
+    t = torch.from_numpy(x).to(device)
+    if trace.ON and t.device.type != "cpu":
+        UPLOAD_BYTES += x.nbytes
+    return t
+
+
 def upload_worklist(work: np.ndarray, device) -> torch.Tensor:
     """int32 [T, 2] worklist of element starts on `device`."""
-    return torch.from_numpy(
-        np.ascontiguousarray(work, dtype=np.int32).reshape(-1, 2)
-    ).to(device)
+    return upload(
+        np.ascontiguousarray(work, dtype=np.int32).reshape(-1, 2), device
+    )
 
 
 # --------------------------------------------------------------------
@@ -816,6 +832,7 @@ def dense_onehot(a: dict, b: dict, work: torch.Tensor, *, differences: int,
 # tile classes of the kernels (csrc/tile_match.cu TileClass): the
 # streams engine.find_pairs splits its worklist into
 CLS_HAMMING, CLS_BOTH, CLS_INDEL_ONLY = 0, 1, 2
+CLASS_NAMES = ("hamming", "both", "indel_only")  # by class
 
 # elements of a plain version's [tiles, TM, TN, lpad] compare per step
 _PLAIN_ELEMS = 1 << 26
@@ -1082,6 +1099,7 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
             _raise_on(lib, "extract_tiles", err)
             _count_launch("extract_tiles")
         host = buf.cpu().numpy()
+        trace.count("d2h_bytes", host.nbytes)
         count = int(host[0])
         n = min(count, k)
         idx = host[1 : 1 + n].copy()
@@ -1386,6 +1404,7 @@ def build(name: str, verbose: bool = False) -> str:
             f"{proc.stdout}"
         )
     os.replace(tmp, path)
+    trace.count_job("kernel_builds", 1)
     return path
 
 
@@ -1400,4 +1419,5 @@ def load_library(name: str):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _LIBS[name] = lib
+            trace.count_job("kernel_loads", 1)
         return lib

@@ -357,7 +357,7 @@ def _find_pairs_pigeonhole(
     from ..core.exact import group_rows
     from .engine import _PhaseTimer
 
-    tm = _PhaseTimer()
+    tm = _PhaseTimer("engine")
     tm.mark()
     pieces = spec.differences + 1
     n1, n2 = db1.n, db2.n

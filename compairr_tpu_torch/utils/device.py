@@ -61,8 +61,9 @@ def local_devices(device=None) -> list:
 @contextlib.contextmanager
 def profile_trace(profile_dir: str):
     """Trace the run with torch.profiler (CPU and, when present, CUDA
-    activity) and write a Chrome trace into profile_dir when it exits
-    (the COMPAIRR_PROFILE hook)."""
+    activity, with the spans of utils.trace as annotations) and write a
+    Chrome trace into profile_dir when it exits (the COMPAIRR_PROFILE
+    hook)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -70,7 +71,15 @@ def profile_trace(profile_dir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    # every thread's annotations (utils.trace spans), the tile route's
+    # worker's included, where this torch can record them
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    with profile(activities=activities, **kw) as prof:
         yield prof
     prof.export_chrome_trace(
         os.path.join(profile_dir, f"trace_{os.getpid()}.json")

@@ -1229,3 +1229,46 @@ def test_bench_kernel_section_on_card(cuda, monkeypatch):
     assert want.sum() > 0 and km["kernel_checksum"] == float(want.sum())
     assert km["device_kind"] == torch.cuda.get_device_name(cuda)
     assert 0 < km["kernel_bound_s"] <= km["kernel_wall_s"]
+
+
+def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
+    """A -m -d 1 -i CLI job under COMPAIRR_TIMING=1 on the card: the
+    derive's and the count's uploads count their bytes on their laps
+    (engine.rows_raw, engine.count), every extract span its worklist's
+    upload and its record buffer's copy-back, and the job counts its
+    kernel library load."""
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.utils import trace
+    from synth import make_tsv
+
+    monkeypatch.delenv("COMPAIRR_DEVICE", raising=False)
+    monkeypatch.delenv("COMPAIRR_PIGEONHOLE", raising=False)
+    monkeypatch.setenv("COMPAIRR_TIMING", "1")
+    monkeypatch.setattr(K, "_LIBS", {})
+    a = make_tsv(str(tmp_path / "a.tsv"), 20_000, 5, seed=41,
+                 alphabet_sub=3, n_v=2, n_j=2, len_range=(6, 9),
+                 max_count=3)
+    trace.reset()
+    try:
+        assert cli.main(["-m", "-d", "1", "-i", a, a,
+                         "-o", str(tmp_path / "o.tsv")]) == 0
+        spans = trace.spans()
+    finally:
+        trace.reset()
+        monkeypatch.delenv("COMPAIRR_TIMING")
+        trace.refresh()
+    by: dict = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    (job,) = by["job"]
+    assert job.counts["kernel_loads"] == 1
+    (fp,) = by["engine.find_pairs"]
+    assert fp.counts["route"] == "tiles" and fp.counts["tile"] == 512
+    for name in ("engine.rows_raw", "engine.count", "kernels.extract"):
+        for s in by[name]:
+            assert s.counts["upload_bytes"] > 0, name
+    (cnt,) = by["engine.count"]
+    assert 0 < cnt.counts["tiles_matched"] <= cnt.counts["tiles"]
+    for s in by["kernels.extract"]:
+        assert s.counts["d2h_bytes"] >= 4 * (1 + 2 * 4096)

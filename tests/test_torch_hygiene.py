@@ -61,6 +61,7 @@ def test_import_leaves_jax_unloaded():
         "compairr_tpu_torch.modes.overlap", "compairr_tpu_torch.modes.dedup",
         "compairr_tpu_torch.modes.cluster",
         "compairr_tpu_torch.utils.device",
+        "compairr_tpu_torch.utils.trace",
         "compairr_tpu_torch.parallel.mesh",
         "compairr_tpu_torch.parallel.worker",
         "compairr_tpu_torch.graft_entry",
