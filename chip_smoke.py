@@ -180,7 +180,19 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      shards in turn over the local cards) at WS_ROWS rows a shard: the
      checksums exactly linear, dense_match launched, and one shard's
      compute_s at least 10 x a launch's fixed cost (0.1 ms);
- 26. prints the card line, one JSON line listing every kernel, and as
+ 26. the parse kernels of csrc/airr_parse.cu (io/card.py's card route of
+     read_db) at the benchmark's shape: the keck20 cohort TSV
+     (portbench/gen.py, its configuration's 4,034,260 rows, seed
+     AIRR_SEED) uploaded by card._upload, then airr_scan, airr_ids,
+     airr_pack and airr_gather on the card held to their plain versions
+     on the same body, every returned array and count exactly, with the
+     launches counted from zero; the kernels' device time (torch.profiler)
+     beside the plain version's wall and the bound (the body read once
+     and the returned arrays written once over HBM); then read_db's card
+     route against the native parser on that file and on a copy with
+     rows that -u and -e ignore (stop codons, empty junctions), each
+     SeqDB equal, with both routes' walls;
+ 27. prints the card line, one JSON line listing every kernel, and as
      its last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -267,6 +279,14 @@ COLD_D2_ROWS = 4_000_000
 # of one shard: 10 x a launch's fixed cost (about 0.1 ms a shard, phase 21)
 WS_ROWS = 1_500_000
 WS_MIN_COMPUTE_S = 10 * 1e-4
+# phase 26: the seed of the keck20 cohort TSV, and the parse kernels'
+# names in csrc/airr_parse.cu (their device time is the kernels' ms)
+AIRR_SEED, AIRR_ROWS = 2_718_281_828, 4_034_260
+AIRR_KERNELS = ("line_count_kernel", "scan_kernel", "line_starts_kernel",
+                "init_kernel", "row_kernel", "slot_tokens_kernel",
+                "verify_kernel", "compact_kernel", "ids_kernel",
+                "pack_kernel", "block_sums_kernel", "scan_write_kernel",
+                "gather_kernel")
 
 # 32-bit integer lane operations a second on the CUDA cores, for the
 # design floors of dense_match and the tile kernels: 132 SMs x 64 a
@@ -1893,6 +1913,196 @@ def count_spans(d1, d2, spec, n_dev):
     return sum(max(1, min(nd, sz // tpd)) for sz in sizes), sizes
 
 
+def keck20_tsv(workdir):
+    """The benchmark's keck20 cohort at its configuration's size
+    (portbench/gen.py, seed AIRR_SEED) written as a TSV; its path."""
+    from portbench import gen
+
+    with open(os.path.join(HERE, "portbench", "configs", "keck20.json")) as f:
+        cfg = json.load(f)
+    sets = gen.make_sets(cfg, AIRR_SEED)
+    path = os.path.join(workdir, "keck20.tsv")
+    gen.write_tsv(sets["cohort"], cfg["sets"]["cohort"]["columns"], path)
+    return path
+
+
+def with_ignored_rows(src, dst):
+    """src's TSV with rows that -u and -e ignore: a stop codon in every
+    37th junction, two in every 1,009th, every 101st junction empty."""
+    with open(src) as f, open(dst, "w") as g:
+        g.write(f.readline())
+        for i, line in enumerate(f):
+            head, _, seq = line.rstrip("\n").rpartition("\t")
+            if i % 101 == 0:
+                seq = ""
+            elif i % 1009 == 0:
+                seq = seq[:2] + "*" + seq[2:] + "*"
+            elif i % 37 == 0:
+                seq = seq[:3] + "*" + seq[3:]
+            g.write(f"{head}\t{seq}\n")
+    return dst
+
+
+def airr_device_ms(fn, reps=5, warm=1):
+    """Mean device milliseconds a call of fn() spends in the parse
+    kernels (AIRR_KERNELS), from torch.profiler's CUDA activity; None
+    when it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(k in e.name for k in AIRR_KERNELS))
+    return us / reps / 1e3 if us else None
+
+
+def same_seqdb(a, b):
+    """The differences between two SeqDBs, field by field ([] if none)."""
+    bad = []
+    for k in ("seqs", "lengths", "counts", "rep_no", "v_no", "j_no",
+              "row_hash"):
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(k)
+    for k in ("repertoire_ids", "residues_count", "total_dup_count",
+              "shortest", "longest", "ignored_unknown", "ignored_empty", "n"):
+        if getattr(a, k) != getattr(b, k):
+            bad.append(k)
+    if (a.genes.v_names, a.genes.j_names) != (b.genes.v_names,
+                                              b.genes.j_names):
+        bad.append("genes")
+    for k in ("_blob", "_off", "_has"):
+        x = np.asarray(getattr(a.sequence_ids, k))
+        y = np.asarray(getattr(b.sequence_ids, k))
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(f"sequence_ids.{k}")
+    return bad
+
+
+def phase_airr_parse(workdir, dev, card_name):
+    """Phase 26 (see the module's docstring)."""
+    import torch
+
+    from compairr_tpu_torch.config import Options
+    from compairr_tpu_torch.core.db import GeneTables
+    from compairr_tpu_torch.io import airr, card
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.utils.progress import NullLogger
+
+    ensure_native()
+    path = keck20_tsv(workdir)
+    cols, off = card._header(path, Options(), False)
+    n_bytes = os.path.getsize(path) - off
+    spec = K.AirrSpec(cols=cols, nucleotides=False, ignore_counts=False,
+                      ignore_genes=False, require_sid=False,
+                      def_off=n_bytes + (-n_bytes % 16), def_len=1)
+    host = card._upload(torch, path, off, n_bytes, b"1", torch.device("cpu"))
+    body = card._upload(torch, path, off, n_bytes, b"1", dev)
+    if not torch.equal(body.cpu(), host):
+        raise AssertionError("the uploaded body differs from the file")
+
+    def parse(b):
+        scan = K.airr_scan(b, n_bytes, spec)
+        ids = K.airr_ids(scan, [np.arange(len(f), dtype=np.int32)
+                                for f in scan["firsts"]])
+        seqs = K.airr_pack(b, scan, scan["longest"], 20)
+        off = torch.from_numpy(np.concatenate(scan["tok_off"])).to(b.device)
+        ln = torch.from_numpy(np.concatenate(scan["tok_len"])).to(b.device)
+        names = K.airr_gather(b, off, ln)
+        return scan, ids, seqs, names
+
+    K.reset_launches()
+    scan, ids, seqs, names = parse(body)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.LAUNCHES.items() if k.startswith("airr")}
+    t0 = time.perf_counter()
+    p_scan, p_ids, p_seqs, p_names = parse(host)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = [k for k in ("lines", "n", "flagged", "collisions", "ignored",
+                       "ignored_unknown", "ignored_empty", "longest",
+                       "shortest", "total_dup", "residues")
+           if scan[k] != p_scan[k]]
+    bad += [k for k in ("starts", "lengths", "counts", "row_hash", "seq_off")
+            if not torch.equal(scan[k].cpu(), p_scan[k])]
+    bad += [k for k in ("firsts", "tok_off", "tok_len")
+            if not all(np.array_equal(x, y)
+                       for x, y in zip(scan[k], p_scan[k]))]
+    for k, x, y in (("ids", ids, p_ids), ("seqs", seqs, p_seqs),
+                    ("names", names[0], p_names[0]),
+                    ("name_offsets", names[1], p_names[1])):
+        if not torch.equal(x.cpu(), y):
+            bad.append(k)
+    seq_blob = K.airr_gather(body, scan["seq_off"], scan["lengths"])
+    p_seq_blob = K.airr_gather(host, p_scan["seq_off"], p_scan["lengths"])
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(seq_blob, p_seq_blob)):
+        bad.append("sequence gather")
+    n = scan["n"]
+    print(f"  {n_bytes} body bytes, {n} rows, lmax {scan['longest']}, "
+          f"tokens {[len(f) for f in scan['firsts']]}; launches {launches}; "
+          f"plain {plain_ms:.1f} ms")
+    if bad or n != AIRR_ROWS or scan["flagged"]:
+        raise AssertionError(f"airr_parse differs from plain in {bad} "
+                             f"(rows {n}, flagged {scan['flagged']})")
+    # an airr_gather call launches its offsets scan and its copy
+    need = {"airr_lines": 2, "airr_verify": 1, "airr_ids": 1, "airr_pack": 1,
+            "airr_compact": 0, "airr_gather": 2}
+    if any(launches[k] != v for k, v in need.items()) or (
+            launches["airr_rows"] < 1):
+        raise AssertionError(f"airr_parse launches {launches}")
+    ms = airr_device_ms(lambda: parse(body))
+    written = sum(t.numel() * t.element_size()
+                  for t in (seqs, ids, scan["lengths"], scan["counts"],
+                            scan["row_hash"]))
+    peak_bw = PEAKS.get(card_name, (None, None))[1]
+    bound_ms = (n_bytes + written) / peak_bw * 1e3 if peak_bw else None
+    print(f"  kernels {fmt_ms(ms)} a parse; bound {fmt_ms(bound_ms)} "
+          f"({n_bytes} bytes read, {written} written, HBM)")
+    del body, host, scan, ids, seqs, names, p_scan, p_ids, p_seqs, p_names
+    del seq_blob, p_seq_blob
+
+    walls, diffs = {}, {}
+    ignored = with_ignored_rows(path, os.path.join(workdir, "keck20_ue.tsv"))
+    for label, f, opt in (("clean", path, Options()),
+                          ("-u -e", ignored,
+                           Options(ignore_unknown=True, ignore_empty=True))):
+        got = want = None
+        for rep in range(3):
+            t0 = time.perf_counter()
+            got, why = card.read_db_card(f, opt, GeneTables(), NullLogger(),
+                                         False, "1", dev)
+            walls.setdefault((label, "card"), []).append(
+                time.perf_counter() - t0)
+            if why is not None:
+                raise AssertionError(f"{label}: the card route left: {why}")
+            with patched(card, "card_device", lambda *a: None):
+                t0 = time.perf_counter()
+                want = airr.read_db(f, opt, GeneTables(), NullLogger(),
+                                    False, "1")
+                walls.setdefault((label, "host"), []).append(
+                    time.perf_counter() - t0)
+        diffs[label] = same_seqdb(got, want)
+        print(f"  read_db {label}: {got.n} rows, ignored "
+              f"{got.ignored_unknown}/{got.ignored_empty}; card "
+              f"{[round(w, 4) for w in walls[(label, 'card')]]} s, host "
+              f"{[round(w, 4) for w in walls[(label, 'host')]]} s; "
+              f"differs in {diffs[label]}")
+    if any(diffs.values()):
+        raise AssertionError(f"card route differs from native: {diffs}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "HBM bytes", "launches": launches, "rows": n,
+            "body_bytes": n_bytes, "written_bytes": written,
+            "walls_s": {f"{a} {b}": w for (a, b), w in walls.items()}}
+
+
 def main(argv) -> int:
     import torch
 
@@ -3212,6 +3422,12 @@ def main(argv) -> int:
 
     report["weak_scaling"] = phase("25 weak scaling", p25)
 
+    def p26():
+        with tempfile.TemporaryDirectory() as workdir:
+            return phase_airr_parse(workdir, dev, name)
+
+    report["airr_parse"] = phase("26 airr parse", p26)
+
     out_dir = os.path.join(HERE, "chiprun_out")
     try:
         os.makedirs(out_dir, exist_ok=True)
@@ -3303,6 +3519,21 @@ def main(argv) -> int:
         "library_ms": None,
         "kernel_ms": oh_t["kernel_ms"]["dense_onehot"],
         "g_ms": oh_g["ms"]["dense_onehot"],
+    })
+    # max_abs_err: 0, every array equal to the plain version's
+    ap = report["airr_parse"]
+    kernels.append({
+        "name": "airr_parse",
+        "route": "cuda",
+        "source": "compairr_tpu_torch/csrc/airr_parse.cu",
+        "replaces": None,
+        "launches": sum(ap["launches"].values()),
+        "max_abs_err": 0,
+        "ms": ap["ms"],
+        "plain_ms": ap["plain_ms"],
+        "bound_ms": ap["bound_ms"],
+        "bound_by": ap["bound_by"],
+        "library_ms": None,
     })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -158,15 +158,21 @@ def read_db(
 ) -> SeqDB:
     """Read one AIRR TSV file into a SeqDB (db.cc:708-901).
 
-    Uses the native C++ parser (native/libairr_parser.so) when built
-    and the input is a regular file; falls back to the pure-Python
-    streaming parser otherwise. Both are semantics-identical.
+    Tokenises the file on the card where io/card.py's card_device rule
+    takes the card route (a regular file past its crossover, CUDA
+    started or torch imported, unsharded, no -k); a file with a row
+    that is an error, or with token keys shared after every try, goes
+    back to the host. On the host, uses the native C++ parser
+    (native/libairr_parser.so) when built and the input is a regular
+    file, else the pure-Python streaming parser. All are
+    semantics-identical.
 
     shard=(k, n) reads only the k-th of n deterministic line-aligned
     byte chunks — the per-host input sharding of a multi-host run
     (requires the native parser).
 
-    Traced as the span io.parse (rows, input bytes).
+    Traced as the span io.parse (rows, input bytes; route, card or
+    host, and fallback, why a file left the card route or none).
     """
     with trace.span("io.parse") as sp:
         db = _read_db(filename, opt, genes, logger, require_sequence_id,
@@ -181,6 +187,20 @@ def read_db(
 def _read_db(filename, opt, genes, logger, require_sequence_id,
              default_repertoire_id, shard) -> SeqDB:
     """read_db without its span."""
+    from .card import card_device, read_db_card
+
+    device = card_device(filename, opt, shard)
+    why = None
+    if device is not None:
+        db, why = read_db_card(filename, opt, genes, logger,
+                               require_sequence_id, default_repertoire_id,
+                               device)
+        if db is not None:
+            trace.note("route", "card")
+            trace.note("fallback", "none")
+            return db
+    trace.note("route", "host")
+    trace.note("fallback", why or "none")
     if (
         filename
         and filename != "-"

@@ -31,8 +31,13 @@ from ..utils.progress import Logger
 
 def cluster(opt: Options, logger: Logger, outfile: IO[str],
             devices=None) -> None:
-    from ..ops.engine import MatchSpec, find_pairs
+    from ..io.card import job_on_card
+    from ..ops.engine import MatchSpec, card_route, find_pairs
 
+    # a job on the tile route may parse its file on the card (io/card.py)
+    job_on_card(card_route(MatchSpec(
+        differences=opt.differences, indels=opt.indels,
+        ignore_genes=opt.ignore_genes, exclude_self=True)))
     logger.write("Immune receptor repertoire clustering\n\n")
 
     genes = GeneTables()

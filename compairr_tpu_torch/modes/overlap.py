@@ -156,7 +156,17 @@ def overlap(
     pairsfile: Optional[IO[str]] = None,
     devices=None,
 ) -> None:
-    from ..ops.engine import MatchSpec, _PhaseTimer, find_pairs
+    from ..io.card import job_on_card
+    from ..ops.engine import MatchSpec, _PhaseTimer, card_route, find_pairs
+
+    # a job whose match takes a device route (the tile route, or the dense
+    # engine where it takes the score) imports torch before its parse, so
+    # that its files may be parsed on the card too (io/card.py)
+    dense = (os.environ.get("COMPAIRR_ENGINE", "").lower() == "dense"
+             and opt.score_int != SCORE_RATIO)
+    job_on_card(dense or card_route(MatchSpec(
+        differences=opt.differences, indels=opt.indels,
+        ignore_genes=opt.ignore_genes)))
 
     tm = _PhaseTimer()
     tm.mark()

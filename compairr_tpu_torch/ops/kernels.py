@@ -29,6 +29,10 @@ engine and the sparse tile route run:
   * count_tiles and extract_tiles: the wrappers of csrc/tile_match.cu,
     which replaces the count and extract kernels
     (pallas_kernels.py:1513, :1683), with their plain versions.
+  * airr_scan, airr_ids, airr_pack and airr_gather: the wrappers of
+    csrc/airr_parse.cu, the AIRR TSV tokeniser of io/card.py's card
+    route of read_db (it replaces no TPU kernel: the JAX package parses
+    on the host), with their plain versions (airr_scan_plain).
   * the nvcc build of csrc/*.cu into build/ and the ctypes loader.
 
 A wrapper takes the plain version only for tensors on the CPU; for
@@ -43,6 +47,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -65,7 +70,10 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # launches per kernel, counted by each wrapper where it launches its
 # kernel and nowhere else (a run reads them to prove its path)
 LAUNCHES = {"dense_match": 0, "dense_onehot": 0, "dense_indel": 0,
-            "dense_general": 0, "count_tiles": 0, "extract_tiles": 0}
+            "dense_general": 0, "count_tiles": 0, "extract_tiles": 0,
+            "airr_lines": 0, "airr_rows": 0, "airr_verify": 0,
+            "airr_compact": 0, "airr_ids": 0, "airr_pack": 0,
+            "airr_gather": 0}
 _LAUNCHES_LOCK = threading.Lock()  # a prefetch worker launches too
 
 
@@ -1317,12 +1325,537 @@ def dense_general(a: dict, b: dict, work: torch.Tensor, *, differences: int,
 
 
 # --------------------------------------------------------------------
+# airr_parse: the AIRR TSV tokeniser of io/card.py's card route
+# --------------------------------------------------------------------
+
+# the columns a spec names, in the order of csrc/airr_parse.cu's F_ words
+AIRR_FIELDS = ("seq", "rep", "sid", "dc", "v", "j")
+AIRR_KINDS = ("rep", "v", "j")  # the interned tokens, in slot order
+AIRR_SLOTS = 1 << 12  # table slots a kind at first; grown while over half full
+AIRR_TILE_BYTES = 1 << 14  # line_count_kernel's tile
+# one entry a try: the bits of a token's FNV-1a hash that key the tables
+# (as int64), all of them. Each try hashes the tokens from its own offset
+# basis (airr_key_basis), so two tokens that share a key in one try are
+# told apart by the next; a file whose tokens still share a key after
+# the last try goes to the host parser. A test narrows a try's mask to
+# plant collisions.
+AIRR_KEY_MASKS = (-1, -1, -1)
+# csrc/airr_parse.cu's stats words
+_S_FLAGGED, _S_LONGEST, _S_SHORTEST, _S_TOTAL_DUP, _S_RESIDUES = range(5)
+_S_OCCUPIED, _S_OVERFLOW, _S_COLLISIONS = 5, 8, 9
+_S_IGN_UNKNOWN, _S_IGN_EMPTY, _S_IGNORED = 10, 11, 12
+_FNV_BASIS = 1469598103934665603
+_FNV_PRIME = 1099511628211
+_COUNT_MAX = 1 << 62
+_WHITESPACE = (32, 9, 10, 13, 11, 12)  # what strtol skips
+
+
+def airr_key_basis(attempt: int) -> int:
+    """The FNV-1a offset basis (as int64) of a try's token keys: the
+    standard one first, then the golden-ratio step added by xor."""
+    b = (_FNV_BASIS ^ (attempt * 0x9E3779B97F4A7C15)) & (2**64 - 1)
+    return b - (1 << 64) if b >= 1 << 63 else b
+
+
+@dataclass(frozen=True)
+class AirrSpec:
+    """What the row pass reads: cols, the 1-based column of each
+    AIRR_FIELDS entry (0 where the header lacks it); the read options;
+    and where the default repertoire id's bytes lie in the buffer
+    (def_off, def_len), past the body."""
+
+    cols: tuple
+    nucleotides: bool
+    ignore_counts: bool
+    ignore_genes: bool
+    require_sid: bool
+    def_off: int
+    def_len: int
+    ignore_unknown: bool = False
+    ignore_empty: bool = False
+
+    def col(self, field: str) -> int:
+        return self.cols[AIRR_FIELDS.index(field)]
+
+    def words(self, attempt: int = 0) -> np.ndarray:
+        """The int64 spec words the C entries read (the P_ words), the
+        token keys those of try attempt."""
+        return np.asarray(
+            [*self.cols, self.ignore_counts, self.ignore_genes,
+             self.require_sid, self.def_off, self.def_len,
+             AIRR_KEY_MASKS[attempt], airr_key_basis(attempt),
+             self.ignore_unknown, self.ignore_empty], dtype=np.int64)
+
+    def residue_map(self) -> np.ndarray:
+        """int8 [256]: each byte's residue code, -1 for none."""
+        from ..constants import MAP_AA, MAP_NT
+
+        return MAP_NT if self.nucleotides else MAP_AA
+
+
+def _airr_call(name: str, fn: str, *args) -> None:
+    lib = load_library("airr_parse")
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({lib.airr_parse_error_string(err).decode()})")
+    _count_launch(name)
+
+
+def _check_body(body: torch.Tensor, n_bytes: int, spec: AirrSpec) -> None:
+    if (body.dtype != torch.uint8 or body.dim() != 1
+            or not body.is_contiguous()):
+        raise ValueError("airr_scan: body must be a contiguous uint8 row")
+    if n_bytes <= 0 or body.numel() < n_bytes + (-n_bytes % 16) or (
+            spec.def_off + spec.def_len > body.numel()):
+        raise ValueError(
+            f"airr_scan: a buffer of {body.numel()} bytes cannot hold a "
+            f"{n_bytes}-byte body padded to 16 and the default id")
+    if len(spec.cols) != len(AIRR_FIELDS) or not spec.col("seq"):
+        raise ValueError("airr_scan: the spec names no sequence column")
+
+
+def _tables(keys: np.ndarray, rows: np.ndarray, tok_off: np.ndarray,
+            tok_len: np.ndarray, n_slots: int) -> dict:
+    """firsts (each distinct token's first line, ascending: the order of
+    first appearance), first_slots, tok_off, tok_len: one list entry a
+    kind, from the tables' used slots."""
+    out = {"firsts": [], "first_slots": [], "tok_off": [], "tok_len": []}
+    for k in range(len(AIRR_KINDS)):
+        part = slice(k * n_slots, (k + 1) * n_slots)
+        used = np.flatnonzero(keys[part] != 0)
+        order = used[np.argsort(rows[part][used], kind="stable")]
+        out["firsts"].append(rows[part][order].astype(np.int64))
+        out["first_slots"].append(order.astype(np.int64))
+        out["tok_off"].append(tok_off[part][order])
+        out["tok_len"].append(tok_len[part][order])
+    return out
+
+
+def airr_scan(body: torch.Tensor, n_bytes: int, spec: AirrSpec) -> dict:
+    """Tokenise the body of an AIRR TSV, the file after its header line,
+    held in body (uint8, zero-padded past n_bytes to a 16-byte multiple,
+    the default repertoire id at spec.def_off), as the host parser
+    (native/airr_parser.cpp, io/airr.py) reads it. Returns a dict:
+    lines, starts (int64 [lines + 1]), flagged (rows that would be an
+    error), ignored (rows skipped under -u and -e), ignored_unknown and
+    ignored_empty (the host parser's counts), n (the rows kept),
+    collisions (kept rows whose repertoire, V or J token differs from
+    the first line's with its key, after the last try of
+    AIRR_KEY_MASKS), longest, shortest, total_dup, residues; on body's
+    device, for the kept rows in file order, lengths int32, counts
+    int64, row_hash int64 (the uint64 FNV-1a of the residue codes),
+    seq_off int64, sid_off int64 and sid_len int32 (None without a
+    sequence_id column), slots int32 [3, n], map (the residue table);
+    and, a list of one numpy array a kind (AIRR_KINDS), firsts (the
+    first line of each distinct token, ascending), first_slots, tok_off,
+    tok_len (the token's bytes in body). Where flagged or collisions is
+    not 0 the rest is not complete. CUDA tensors launch
+    csrc/airr_parse.cu; CPU tensors take airr_scan_plain."""
+    _check_body(body, n_bytes, spec)
+    if body.device.type == "cpu":
+        return airr_scan_plain(body, n_bytes, spec)
+    dev = body.device
+    with torch.cuda.device(dev):
+        return _airr_scan_cuda(body, n_bytes, spec, dev)
+
+
+def _airr_scan_cuda(body, n_bytes, spec, dev) -> dict:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    i64, i32 = torch.int64, torch.int32
+    tiles = -(-n_bytes // AIRR_TILE_BYTES)
+    tile_first = torch.empty(tiles + 1, dtype=i64, device=dev)
+    _airr_call("airr_lines", "airr_line_count_launch", body.data_ptr(),
+               n_bytes, tile_first.data_ptr(), stream)
+    newlines = int(tile_first[tiles])
+    open_end = n_bytes + 1 if int(body[n_bytes - 1]) != 10 else -1
+    n = newlines + (open_end > 0)
+    if n >= 1 << 31:
+        raise ValueError(f"airr_scan: {n} lines pass int32 row ids")
+    starts = torch.empty(n + 1, dtype=i64, device=dev)
+    _airr_call("airr_lines", "airr_line_starts_launch", body.data_ptr(),
+               n_bytes, tile_first.data_ptr(), newlines, open_end,
+               starts.data_ptr(), stream)
+    del tile_first
+    out = {
+        "lines": n, "n": n, "starts": starts,
+        "lengths": torch.empty(n, dtype=i32, device=dev),
+        "counts": torch.empty(n, dtype=i64, device=dev),
+        "row_hash": torch.empty(n, dtype=i64, device=dev),
+        "seq_off": torch.empty(n, dtype=i64, device=dev),
+        "sid_off": None, "sid_len": None,
+        "slots": torch.empty((len(AIRR_KINDS), n), dtype=i32, device=dev),
+        "map": torch.from_numpy(spec.residue_map()).to(dev),
+    }
+    if spec.col("sid"):
+        out["sid_off"] = torch.empty(n, dtype=i64, device=dev)
+        out["sid_len"] = torch.empty(n, dtype=i32, device=dev)
+    stats = torch.empty(int(load_library("airr_parse").airr_stats_words()),
+                        dtype=i64, device=dev)
+    n_slots = AIRR_SLOTS
+    row_args = [None if out[k] is None else out[k].data_ptr()
+                for k in _AIRR_ROW_FIELDS]
+    for attempt in range(len(AIRR_KEY_MASKS)):
+        words = spec.words(attempt)
+        while True:
+            keys = torch.empty(len(AIRR_KINDS) * n_slots, dtype=i64,
+                               device=dev)
+            rows = torch.empty(len(AIRR_KINDS) * n_slots, dtype=i32,
+                               device=dev)
+            _airr_call("airr_rows", "airr_rows_launch", body.data_ptr(),
+                       starts.data_ptr(), n, words.ctypes.data,
+                       out["map"].data_ptr(), *row_args, keys.data_ptr(),
+                       rows.data_ptr(), n_slots, stats.data_ptr(), stream)
+            st = stats.cpu().numpy()
+            occupied = int(st[_S_OCCUPIED:_S_OCCUPIED + 3].max())
+            if st[_S_FLAGGED] or not (st[_S_OVERFLOW]
+                                      or 2 * occupied > n_slots):
+                break
+            n_slots = (n_slots * 16 if st[_S_OVERFLOW]
+                       else 1 << (4 * occupied - 1).bit_length())
+        out.update(n_slots=n_slots, flagged=int(st[_S_FLAGGED]),
+                   collisions=0)
+        if out["flagged"]:
+            return out
+        tok_off = torch.empty(len(AIRR_KINDS) * n_slots, dtype=i64,
+                              device=dev)
+        tok_len = torch.empty(len(AIRR_KINDS) * n_slots, dtype=i32,
+                              device=dev)
+        _airr_call("airr_verify", "airr_verify_launch", body.data_ptr(),
+                   starts.data_ptr(), n, words.ctypes.data,
+                   out["lengths"].data_ptr(), out["slots"].data_ptr(),
+                   keys.data_ptr(), rows.data_ptr(), n_slots,
+                   tok_off.data_ptr(), tok_len.data_ptr(),
+                   stats.data_ptr(), stream)
+        st = stats.cpu().numpy()
+        if not st[_S_COLLISIONS]:
+            break
+    tables = [t.cpu().numpy() for t in (keys, rows, tok_off, tok_len)]
+    trace.count("d2h_bytes", st.nbytes + sum(t.nbytes for t in tables))
+    out.update(_tables(*tables, n_slots))
+    out.update(collisions=int(st[_S_COLLISIONS]),
+               longest=int(st[_S_LONGEST]), shortest=int(st[_S_SHORTEST]),
+               total_dup=int(st[_S_TOTAL_DUP]),
+               residues=int(st[_S_RESIDUES]),
+               ignored=int(st[_S_IGNORED]),
+               ignored_unknown=int(st[_S_IGN_UNKNOWN]),
+               ignored_empty=int(st[_S_IGN_EMPTY]))
+    if out["ignored"] and not out["collisions"]:
+        _airr_compact_cuda(out, dev, stream)
+    return out
+
+
+# the row pass's per-row arrays, in the order of its C entry's arguments
+_AIRR_ROW_FIELDS = ("lengths", "counts", "row_hash", "seq_off", "sid_off",
+                    "sid_len", "slots")
+
+
+def _airr_compact_cuda(out: dict, dev, stream) -> None:
+    """out's per-row arrays cut to the kept rows (in place of the
+    lines'), n set to their count."""
+    n = out["lines"]
+    m = n - out["ignored"]
+    lib = load_library("airr_parse")
+    scratch = torch.empty(int(lib.airr_offset_chunks(n)) + 1,
+                          dtype=torch.int64, device=dev)
+    index = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    kept = {k: None if out[k] is None else torch.empty(
+        (len(AIRR_KINDS), m) if k == "slots" else m, dtype=out[k].dtype,
+        device=dev) for k in _AIRR_ROW_FIELDS}
+    ptr = [None if out[k] is None else out[k].data_ptr()
+           for k in _AIRR_ROW_FIELDS]
+    _airr_call("airr_compact", "airr_compact_launch", n, *ptr,
+               scratch.data_ptr(), index.data_ptr(), m,
+               *[None if kept[k] is None else kept[k].data_ptr()
+                 for k in _AIRR_ROW_FIELDS], stream)
+    out.update(kept, n=m)
+
+
+def _token_bytes(body: torch.Tensor, off: torch.Tensor,
+                 length: torch.Tensor, width: int) -> torch.Tensor:
+    """int64 [n, width]: each token's bytes, -1 past its length."""
+    pos = torch.arange(width, dtype=torch.int64)
+    idx = (off[:, None] + pos).clamp(0, body.numel() - 1)
+    return torch.where(pos < length[:, None], body[idx].long(),
+                       torch.full((), -1, dtype=torch.int64))
+
+
+def _fnv_plain(vals: torch.Tensor, length: torch.Tensor,
+               basis: int = _FNV_BASIS) -> torch.Tensor:
+    """int64 [n]: the FNV-1a hash (uint64 bits; offset basis basis) of
+    each row's first length values (bytes or residue codes) of vals
+    [n, width]."""
+    h = torch.full((vals.shape[0],), basis, dtype=torch.int64)
+    for c in range(vals.shape[1]):
+        h = torch.where(c < length, (h ^ (vals[:, c] & 0xFF)) * _FNV_PRIME,
+                        h)
+    return h
+
+
+def _lines_plain(body: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """int64 [n + 1] line starts, as line_starts_kernel writes them."""
+    b = body[:n_bytes]
+    parts = [torch.zeros(1, dtype=torch.int64),
+             torch.nonzero(b == 10).flatten() + 1]
+    if int(b[-1]) != 10:
+        parts.append(torch.tensor([n_bytes + 1]))
+    return torch.cat(parts)
+
+
+def _fields_plain(body: torch.Tensor, n_bytes: int, starts: torch.Tensor,
+                  spec: AirrSpec) -> dict:
+    """{field: (off, len)} of each line, len -1 where the line lacks the
+    column, as split_fields gives them."""
+    s, q = starts[:-1], starts[1:] - 1
+    cr = (q > s) & (body[(q - 1).clamp(min=0)] == 13)
+    e = q - cr.long()
+    tabs = torch.nonzero(body[:n_bytes] == 9).flatten()
+    lo = torch.searchsorted(tabs, s)
+    ntab = torch.searchsorted(tabs, e) - lo
+    tab = tabs if len(tabs) else torch.zeros(1, dtype=torch.int64)
+
+    def at(k):  # each line's k-th tab, where it has one
+        return tab[(lo + k).clamp(0, len(tab) - 1)]
+
+    missing = torch.full_like(s, -1)
+    out = {}
+    for field, c in zip(AIRR_FIELDS, spec.cols):
+        if not c:
+            out[field] = (s, missing)
+            continue
+        start = s if c == 1 else at(c - 2) + 1
+        end = torch.where(ntab >= c, at(c - 1), e)
+        have = ntab >= c - 1
+        out[field] = (torch.where(have, start, s),
+                      torch.where(have, end - start, missing))
+    return out
+
+
+def _counts_plain(body: torch.Tensor, off: torch.Tensor,
+                  length: torch.Tensor):
+    """(ok, value) of parse_count over each token (length >= 0)."""
+    n = len(length)
+    width = int(length.max()) if n else 0
+    tb = _token_bytes(body, off, length, width)
+    blank = torch.isin(tb, torch.tensor(_WHITESPACE))
+    skipping = torch.ones(n, dtype=torch.bool)
+    i = torch.zeros(n, dtype=torch.int64)  # the first byte past the blanks
+    for c in range(width):
+        skipping &= blank[:, c]
+        i += skipping.long()
+    first = (tb.gather(1, i.clamp(max=max(width - 1, 0))[:, None])[:, 0]
+             if width else torch.full((n,), -1, dtype=torch.int64))
+    sign = (i < length) & ((first == 43) | (first == 45))
+    d0 = i + sign.long()  # the first digit
+    ok = (d0 < length) & ~(sign & (first == 45))
+    v = torch.zeros(n, dtype=torch.int64)
+    for c in range(width):
+        inside = (c >= d0) & (c < length)
+        digit = tb[:, c] - 48
+        ok &= ~inside | ((digit >= 0) & (digit <= 9))
+        v = torch.where(inside & ok, v * 10 + digit.clamp(0, 9), v)
+        ok &= v <= _COUNT_MAX
+    return ok & (v >= 1), v
+
+
+def airr_scan_plain(body: torch.Tensor, n_bytes: int, spec: AirrSpec) -> dict:
+    """airr_scan in plain PyTorch (CPU), vectorised over the lines. Its
+    slots are the distinct tokens' ranks in first-appearance order."""
+    starts = _lines_plain(body, n_bytes)
+    lines = len(starts) - 1
+    f = _fields_plain(body, n_bytes, starts, spec)
+    seq_off, seq_len = f["seq"]
+    seq_len = seq_len.clamp(min=0)
+    res_map = torch.from_numpy(spec.residue_map())
+    tb = _token_bytes(body, seq_off, seq_len, int(seq_len.max()))
+    codes = torch.where(tb >= 0, res_map.long()[tb.clamp(min=0)],
+                        torch.full((), -2, dtype=torch.int64))
+    # airr_parser.cpp's scan: an unknown printable symbol is ignored
+    # under -u, any other byte that is no residue an error; no residue
+    # is ignored under -e
+    printable = (tb >= 32) & (tb <= 126)
+    unknown = ((codes == -1) & printable).sum(1)
+    length = (codes >= 0).sum(1)
+    bad = ((codes == -1) & ~printable).any(1)
+    if not spec.ignore_unknown:
+        bad |= unknown > 0
+    if not spec.ignore_empty:
+        bad |= length == 0
+    skip = ~bad & ((unknown > 0) | (length == 0))
+    kept = ~bad & ~skip
+    sid_off = sid_len = None
+    if spec.col("sid"):
+        sid_off, sid_len = f["sid"][0], f["sid"][1].clamp(min=0).int()
+        if spec.require_sid:
+            bad |= kept & (sid_len == 0)
+    dc_off, dc_len = f["dc"]
+    ok, counts = _counts_plain(body, dc_off, dc_len.clamp(min=0))
+    counts = torch.where(dc_len > 0, counts, torch.ones_like(counts))
+    bad |= kept & (dc_len > 0) & ~ok
+    if not spec.ignore_counts:
+        bad |= kept & (dc_len <= 0)
+    if not spec.ignore_genes:
+        bad |= kept & ((f["v"][1] <= 0) | (f["j"][1] <= 0))
+    line = torch.nonzero(kept).flatten()  # the kept rows' lines
+    n = len(line)
+    out = {"lines": lines, "n": n, "starts": starts,
+           "lengths": length[line].int(), "counts": counts[line],
+           "row_hash": _fnv_plain(codes, length)[line],
+           "seq_off": seq_off[line],
+           "sid_off": None if sid_off is None else sid_off[line],
+           "sid_len": None if sid_len is None else sid_len[line],
+           "map": res_map, "flagged": int(bad.sum()), "collisions": 0,
+           "n_slots": 0, "ignored": int(skip.sum()),
+           "ignored_unknown": int(unknown[skip].sum()),
+           "ignored_empty": int((skip & (length == 0)).sum())}
+    if out["flagged"]:
+        return out
+    for attempt in range(len(AIRR_KEY_MASKS)):
+        tables = _token_ranks_plain(body, f, line, spec, attempt)
+        out.update(tables)
+        if not out["collisions"]:
+            break
+    kl = out["lengths"]
+    out.update(longest=int(kl.max()) if n else 0,
+               shortest=int(kl.min()) if n else 0x7FFFFFFF,
+               total_dup=int(out["counts"].sum()), residues=int(kl.sum()))
+    return out
+
+
+def _token_ranks_plain(body: torch.Tensor, f: dict, line: torch.Tensor,
+                       spec: AirrSpec, attempt: int) -> dict:
+    """slots, firsts, first_slots, tok_off, tok_len and collisions of the
+    kept rows (their lines line) under try attempt's keys."""
+    out = {"firsts": [], "first_slots": [], "tok_off": [], "tok_len": []}
+    n = len(line)
+    pos = torch.arange(n, dtype=torch.int64)
+    differ = torch.zeros(n, dtype=torch.bool)
+    slots = []
+    basis = airr_key_basis(attempt)
+    for kind in AIRR_KINDS:
+        off, ln = f[kind][0][line], f[kind][1][line]
+        if kind == "rep":
+            off = torch.where(ln < 0, spec.def_off, off)
+            ln = torch.where(ln < 0, spec.def_len, ln)
+        ln = ln.clamp(min=0)
+        kb = _token_bytes(body, off, ln, int(ln.max()) if n else 0)
+        key = _fnv_plain(kb, ln, basis) & AIRR_KEY_MASKS[attempt]
+        key = torch.where(key == 0, 1, key)
+        uniq, inv = torch.unique(key, return_inverse=True)
+        first = torch.full((len(uniq),), n, dtype=torch.int64).scatter_reduce(
+            0, inv, pos, "amin")
+        rep = first[inv]
+        differ |= (ln != ln[rep]) | (kb != kb[rep]).any(1)
+        order = torch.argsort(first)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(len(order))
+        slots.append(rank[inv].int())
+        out["firsts"].append(line[first[order]].numpy())
+        out["first_slots"].append(np.arange(len(order), dtype=np.int64))
+        out["tok_off"].append(off[first[order]].numpy())
+        out["tok_len"].append(ln[first[order]].int().numpy())
+    out["slots"] = (torch.stack(slots) if n else
+                    torch.zeros((len(AIRR_KINDS), 0), dtype=torch.int32))
+    out["collisions"] = int(differ.sum())
+    return out
+
+
+def airr_ids(scan: dict, ids: list) -> torch.Tensor:
+    """int32 [3, n] on the scan's device: each row's repertoire, V and J
+    id, ids giving one numpy int32 array a kind (AIRR_KINDS) in the
+    order of scan["firsts"]. CUDA tensors launch csrc/airr_parse.cu,
+    which turns the scan's slots into the ids in place; CPU tensors take
+    a gather (the plain version)."""
+    slots = scan["slots"]
+    if slots.device.type == "cpu":
+        return torch.stack([torch.from_numpy(np.asarray(x, dtype=np.int32))[
+            slots[k].long()] for k, x in enumerate(ids)])
+    return _airr_ids_cuda(scan, ids)
+
+
+def _airr_ids_cuda(scan: dict, ids: list) -> torch.Tensor:
+    slots = scan["slots"]
+    n_slots = scan["n_slots"]
+    table = np.zeros(len(AIRR_KINDS) * n_slots, dtype=np.int32)
+    for k, x in enumerate(ids):
+        table[k * n_slots + scan["first_slots"][k]] = x
+    dev = slots.device
+    slot_ids = torch.from_numpy(table).to(dev)
+    with torch.cuda.device(dev):
+        _airr_call("airr_ids", "airr_ids_launch", slots.data_ptr(),
+                   scan["n"], slot_ids.data_ptr(), n_slots,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    return slots
+
+
+def airr_pack(body: torch.Tensor, scan: dict, lmax: int,
+              pad: int) -> torch.Tensor:
+    """int8 [n, lmax] on body's device: each row's residue codes, then
+    pad. CUDA tensors launch csrc/airr_parse.cu; CPU tensors take a
+    gather (the plain version)."""
+    if body.device.type == "cpu":
+        tb = _token_bytes(body, scan["seq_off"], scan["lengths"].long(),
+                          lmax)
+        return torch.where(tb >= 0, scan["map"][tb.clamp(min=0)],
+                           torch.full((), pad, dtype=torch.int8))
+    return _airr_pack_cuda(body, scan, lmax, pad)
+
+
+def _airr_pack_cuda(body, scan, lmax, pad) -> torch.Tensor:
+    out = torch.empty((scan["n"], lmax), dtype=torch.int8,
+                      device=body.device)
+    with torch.cuda.device(body.device):
+        _airr_call("airr_pack", "airr_pack_launch", body.data_ptr(),
+                   scan["seq_off"].data_ptr(), scan["lengths"].data_ptr(),
+                   scan["n"], lmax, scan["map"].data_ptr(), pad,
+                   out.data_ptr(),
+                   torch.cuda.current_stream(body.device).cuda_stream)
+    return out
+
+
+def airr_gather(src: torch.Tensor, off: torch.Tensor,
+                length: torch.Tensor):
+    """(blob uint8, offsets int64 [k + 1]) on src's device: the k tokens
+    src[off[t], +length[t]) one after another (off int64, length int32;
+    a negative length counts 0). CUDA tensors launch
+    csrc/airr_parse.cu; CPU tensors take cumsum and a gather (the plain
+    version)."""
+    if src.device.type == "cpu":
+        ln = length.long().clamp(min=0)
+        offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                             torch.cumsum(ln, 0)])
+        total = int(offsets[-1])
+        starts = torch.repeat_interleave(off - offsets[:-1], ln)
+        return src[starts + torch.arange(total)], offsets
+    return _airr_gather_cuda(src, off, length)
+
+
+def _airr_gather_cuda(src, off, length):
+    k = len(length)
+    dev = src.device
+    with torch.cuda.device(dev):
+        lib = load_library("airr_parse")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = torch.empty(int(lib.airr_offset_chunks(k)) + 1,
+                              dtype=torch.int64, device=dev)
+        offsets = torch.empty(k + 1, dtype=torch.int64, device=dev)
+        _airr_call("airr_gather", "airr_offsets_launch", length.data_ptr(),
+                   k, scratch.data_ptr(), offsets.data_ptr(), stream)
+        blob = torch.empty(int(offsets[k]), dtype=torch.uint8, device=dev)
+        _airr_call("airr_gather", "airr_gather_launch", src.data_ptr(),
+                   off.data_ptr(), length.data_ptr(), offsets.data_ptr(), k,
+                   blob.data_ptr(), stream)
+    return blob, offsets
+
+
+# --------------------------------------------------------------------
 # build and load
 # --------------------------------------------------------------------
 
 # kernel sources under csrc/, each built into its own shared library
 # with a plain C interface, and the C signatures the wrappers call
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "dense_match": {
         "dense_match_launch": ([_P] * 9 + [_I] * 10 + [_P, _P], _I),
@@ -1346,6 +1879,21 @@ _SIGNATURES = {
         "extract_tiles_launch": ([_P] * 9 + [_I] * 13 + [_P] * 4, _I),
         "tile_match_smem_bytes": ([_I] * 5, _I),
         "tile_match_error_string": ([_I], ctypes.c_char_p),
+    },
+    "airr_parse": {
+        "airr_line_count_launch": ([_P, _L, _P, _P], _I),
+        "airr_line_starts_launch": ([_P, _L, _P, _L, _L, _P, _P], _I),
+        "airr_rows_launch": ([_P, _P, _L] + [_P] * 11 + [_I, _P, _P], _I),
+        "airr_verify_launch": ([_P, _P, _L] + [_P] * 5 + [_I] + [_P] * 4,
+                               _I),
+        "airr_compact_launch": ([_L] + [_P] * 9 + [_L] + [_P] * 8, _I),
+        "airr_ids_launch": ([_P, _L, _P, _I, _P], _I),
+        "airr_pack_launch": ([_P, _P, _P, _L, _I, _P, _I, _P, _P], _I),
+        "airr_offsets_launch": ([_P, _L, _P, _P, _P], _I),
+        "airr_gather_launch": ([_P] * 4 + [_L, _P, _P], _I),
+        "airr_offset_chunks": ([_L], _L),
+        "airr_stats_words": ([], _I),
+        "airr_parse_error_string": ([_I], ctypes.c_char_p),
     },
 }
 NVCC_FLAGS = [

@@ -50,7 +50,10 @@ class Logger:
 
     # --- progress API (util.cc:32-70) ---
 
-    def progress_init(self, prompt: str, size: int) -> None:
+    def progress_init(self, prompt: str, size: int,
+                      since: Optional[float] = None) -> None:
+        """Start a phase; since (time.monotonic()) dates its start back
+        to work done before its prompt could be written."""
         self._prompt = prompt
         self._size = size
         self._chunk = 1 if size < self.GRANULARITY else size // self.GRANULARITY
@@ -60,7 +63,7 @@ class Logger:
         else:
             self.f.write(f"{prompt} 0%")
         self.f.flush()
-        self._t0 = time.monotonic()
+        self._t0 = time.monotonic() if since is None else since
 
     def progress_update(self, progress: int) -> None:
         if not self.to_file and progress >= self._next:

@@ -1262,7 +1262,10 @@ def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
     for s in spans:
         by.setdefault(s.name, []).append(s)
     (job,) = by["job"]
-    assert job.counts["kernel_loads"] == 1
+    # tile_match, and airr_parse where the parse took the card route
+    parses = by["io.parse"]
+    assert job.counts["kernel_loads"] == 1 + any(
+        s.counts["route"] == "card" for s in parses)
     (fp,) = by["engine.find_pairs"]
     assert fp.counts["route"] == "tiles" and fp.counts["tile"] == 512
     for name in ("engine.rows_raw", "engine.count", "kernels.extract"):
@@ -1272,3 +1275,273 @@ def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
     assert 0 < cnt.counts["tiles_matched"] <= cnt.counts["tiles"]
     for s in by["kernels.extract"]:
         assert s.counts["d2h_bytes"] >= 4 * (1 + 2 * 4096)
+
+
+# --------------------------------------------------------------------
+# airr_parse: the card route of read_db (io/card.py)
+# --------------------------------------------------------------------
+
+
+def _native_parser(monkeypatch):
+    """The native parser, built here when absent (the card's machine
+    starts with no build)."""
+    import subprocess
+
+    from compairr_tpu_torch.io import native
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if native.load_library() is None:
+        subprocess.run(["make", "-C", os.path.join(root, "native")],
+                       check=True, stdout=subprocess.DEVNULL)
+        monkeypatch.setattr(native, "_TRIED", False)
+    lib = native.load_library()
+    assert lib is not None
+    return lib
+
+
+@pytest.fixture(scope="module")
+def keck_cut(tmp_path_factory):
+    """A 200,000-row cut of the benchmark's keck20 cohort (its generator
+    and parameters, rows reduced), as a TSV."""
+    import json
+
+    from portbench import gen
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", "keck20.json")) as f:
+        cfg = json.load(f)
+    p = dict(cfg["sets"]["cohort"], rows=200_000)
+    sets = gen.make_sets({"sets": {"cohort": p}}, 2_718_281_828)
+    path = str(tmp_path_factory.mktemp("keck") / "cohort.tsv")
+    gen.write_tsv(sets["cohort"], p["columns"], path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def keck_cut_ignored(tmp_path_factory, keck_cut):
+    """The keck20 cut with rows that -u and -e ignore: a stop codon ('*')
+    in every 37th row's junction, two in every 1,009th, and every 101st
+    junction empty."""
+    path = str(tmp_path_factory.mktemp("keck_u") / "cohort_ue.tsv")
+    with open(keck_cut) as f, open(path, "w") as g:
+        g.write(f.readline())
+        for i, line in enumerate(f):
+            head, _, seq = line.rstrip("\n").rpartition("\t")
+            if i % 101 == 0:
+                seq = ""
+            elif i % 1009 == 0:
+                seq = seq[:2] + "*" + seq[2:] + "*"
+            elif i % 37 == 0:
+                seq = seq[:3] + "*" + seq[3:]
+            g.write(f"{head}\t{seq}\n")
+    return path
+
+
+def _same_db(a, b, native=False):
+    import numpy as np
+
+    for k in ("seqs", "lengths", "counts", "rep_no", "v_no", "j_no"):
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+    for k in ("repertoire_ids", "residues_count", "total_dup_count",
+              "shortest", "longest", "ignored_unknown", "ignored_empty"):
+        assert getattr(a, k) == getattr(b, k), k
+    assert a.genes.v_names == b.genes.v_names
+    assert a.genes.j_names == b.genes.j_names
+    assert np.array_equal(a.row_hash, b.row_hash)
+    for k in ("_blob", "_off", "_has"):
+        x = np.asarray(getattr(a.sequence_ids, k))
+        y = np.asarray(getattr(b.sequence_ids, k))
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+
+
+def _card_read(path, opt, dev, require_sid=False, default="1"):
+    from compairr_tpu_torch.core.db import GeneTables
+    from compairr_tpu_torch.io import card
+    from compairr_tpu_torch.utils.progress import NullLogger
+
+    return card.read_db_card(path, opt, GeneTables(), NullLogger(),
+                             require_sid, default, dev)
+
+
+def test_airr_scan_equals_plain(cuda, keck_cut):
+    """The kernels' scan of the keck20 cut against the plain version's,
+    array by array, and the launches counted."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.config import Options
+    from compairr_tpu_torch.io import card
+    from compairr_tpu_torch.ops import kernels as K
+
+    cols, off = card._header(keck_cut, Options(), False)
+    n_bytes = os.path.getsize(keck_cut) - off
+    spec = K.AirrSpec(cols=cols, nucleotides=False, ignore_counts=False,
+                      ignore_genes=False, require_sid=False,
+                      def_off=n_bytes + (-n_bytes % 16), def_len=1)
+    host = card._upload(torch, keck_cut, off, n_bytes, b"1",
+                        torch.device("cpu"))
+    dev = card._upload(torch, keck_cut, off, n_bytes, b"1", cuda)
+    assert torch.equal(dev.cpu(), host)
+    before = dict(K.LAUNCHES)
+    got = K.airr_scan(dev, n_bytes, spec)
+    want = K.airr_scan(host, n_bytes, spec)
+    assert K.LAUNCHES["airr_lines"] == before["airr_lines"] + 2
+    assert K.LAUNCHES["airr_verify"] == before["airr_verify"] + 1
+    for k in ("lines", "n", "flagged", "collisions", "longest", "shortest",
+              "total_dup", "residues", "ignored", "ignored_unknown",
+              "ignored_empty"):
+        assert got[k] == want[k], k
+    assert got["n"] == 200_000 and got["flagged"] == 0
+    for k in ("starts", "lengths", "counts", "row_hash", "seq_off"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k in ("firsts", "tok_off", "tok_len"):
+        for x, y in zip(got[k], want[k]):
+            assert np.array_equal(x, y), k
+    ids = [np.arange(len(f), dtype=np.int32) for f in got["firsts"]]
+    assert torch.equal(K.airr_pack(dev, got, got["longest"], 20).cpu(),
+                       K.airr_pack(host, want, want["longest"], 20))
+    assert torch.equal(K.airr_ids(got, ids).cpu(), K.airr_ids(want, ids))
+
+
+def test_card_parse_equals_plain_and_native(cuda, monkeypatch, keck_cut):
+    """read_db's card route on the keck20 cut against the plain version
+    and the native parser: every array, row hash, name order and the
+    sequence_id table."""
+    from compairr_tpu_torch.config import Options
+    from compairr_tpu_torch.core.db import GeneTables
+    from compairr_tpu_torch.io import airr
+    from compairr_tpu_torch.utils.progress import NullLogger
+
+    import torch
+
+    _native_parser(monkeypatch)
+    got, why = _card_read(keck_cut, Options(), cuda)
+    assert why is None
+    plain, _ = _card_read(keck_cut, Options(), torch.device("cpu"))
+    _same_db(got, plain)
+    monkeypatch.setattr("compairr_tpu_torch.io.card.card_device",
+                        lambda *a: None)
+    native = airr.read_db(keck_cut, Options(), GeneTables(), NullLogger(),
+                          False, "1")
+    _same_db(got, native)
+
+
+def test_card_parse_ignored_rows(cuda, monkeypatch, keck_cut_ignored):
+    """The keck20 cut with rows ignored under -u and -e, on the card:
+    the kept rows compacted, and every array and count equal to the
+    plain version's and the native parser's."""
+    from compairr_tpu_torch.config import Options
+    from compairr_tpu_torch.core.db import GeneTables
+    from compairr_tpu_torch.io import airr
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.utils.progress import NullLogger
+
+    import torch
+
+    _native_parser(monkeypatch)
+    opt = Options(ignore_unknown=True, ignore_empty=True)
+    before = K.LAUNCHES["airr_compact"]
+    got, why = _card_read(keck_cut_ignored, opt, cuda)
+    assert why is None and K.LAUNCHES["airr_compact"] == before + 1
+    assert got.ignored_unknown > got.ignored_empty > 0
+    assert got.n == sum(1 for i in range(200_000)
+                        if i % 101 and i % 1009 and i % 37)
+    plain, _ = _card_read(keck_cut_ignored, opt, torch.device("cpu"))
+    _same_db(got, plain)
+    monkeypatch.setattr("compairr_tpu_torch.io.card.card_device",
+                        lambda *a: None)
+    native = airr.read_db(keck_cut_ignored, opt, GeneTables(), NullLogger(),
+                          False, "1")
+    _same_db(got, native)
+
+
+def test_card_parse_edge_cases(cuda, monkeypatch, tmp_path):
+    """The tier-1 edge-case files (tests/test_torch_card_parse.py) on
+    the card against the native parser, one GeneTables a case; and every
+    flagged kind and a planted collision leave the card route."""
+    import test_torch_card_parse as T
+
+    from compairr_tpu_torch.config import Options
+    from compairr_tpu_torch.core.db import GeneTables
+    from compairr_tpu_torch.io import airr, card
+    from compairr_tpu_torch.ops import kernels as K
+    from compairr_tpu_torch.utils.progress import NullLogger
+
+    _native_parser(monkeypatch)
+    for name, (texts, kw, require_sid, default) in sorted(T.CASES.items()):
+        paths = T._write(tmp_path, texts)
+        opt = Options(**kw)
+        g1, g2 = GeneTables(), GeneTables()
+        for path in paths:
+            got, why = card.read_db_card(path, opt, g1, NullLogger(),
+                                         require_sid, default, cuda)
+            assert why is None, name
+            with monkeypatch.context() as m:
+                m.setattr(card, "card_device", lambda *a: None)
+                want = airr.read_db(path, opt, g2, NullLogger(), require_sid,
+                                    default)
+            _same_db(got, want)
+    for name, (row, kw, require_sid) in sorted(T.BAD.items()):
+        if row is None:
+            continue
+        path = tmp_path / f"bad_{name}.tsv"
+        path.write_bytes(T._tsv(T.H, T.ROWS + [row]).encode("latin-1"))
+        got, why = _card_read(str(path), Options(**kw), cuda, require_sid)
+        if name in T.IGNORED:
+            assert why is None, name
+            with monkeypatch.context() as m:
+                m.setattr(card, "card_device", lambda *a: None)
+                want = airr.read_db(str(path), Options(**kw), GeneTables(),
+                                    NullLogger(), require_sid, "1")
+            _same_db(got, want)
+        else:
+            assert (got, why) == (None, "flagged_row"), name
+    path = tmp_path / "ok.tsv"
+    path.write_text(T._tsv(T.H, T.ROWS))
+    with monkeypatch.context() as m:
+        m.setattr(card, "card_device", lambda *a: None)
+        want = airr.read_db(str(path), Options(), GeneTables(), NullLogger(),
+                            False, "1")
+    monkeypatch.setattr(K, "AIRR_KEY_MASKS", (0, -1))
+    got, why = _card_read(str(path), Options(), cuda)
+    assert why is None
+    _same_db(got, want)
+    monkeypatch.setattr(K, "AIRR_KEY_MASKS", (0, 0, 0))
+    assert _card_read(str(path), Options(), cuda) == (None, "collision")
+
+
+def test_cli_job_same_output_on_both_routes(cuda, monkeypatch, tmp_path,
+                                            keck_cut):
+    """One -m -d 1 -i CLI job on the keck20 cut: the card route's output
+    file is the host route's, byte for byte; the span says which route
+    each read took."""
+    import torch
+
+    from compairr_tpu_torch import cli
+    from compairr_tpu_torch.io import card
+    from compairr_tpu_torch.utils import trace
+
+    _native_parser(monkeypatch)
+    torch.zeros(1, device=cuda)  # CUDA started: the warm crossover
+    monkeypatch.delenv("COMPAIRR_DEVICE", raising=False)
+    monkeypatch.delenv("COMPAIRR_PIGEONHOLE", raising=False)
+    monkeypatch.setenv("COMPAIRR_TIMING", "1")
+    outs, routes = [], []
+    try:
+        for host in (False, True):
+            if host:
+                monkeypatch.setattr(card, "card_device", lambda *a: None)
+            out = tmp_path / f"o{int(host)}.tsv"
+            trace.reset()
+            assert cli.main(["-m", "-d", "1", "-i", keck_cut,
+                             "-o", str(out)]) == 0
+            routes.append([s.counts["route"] for s in trace.spans()
+                           if s.name == "io.parse"])
+            outs.append(out.read_bytes())
+    finally:
+        trace.reset()
+        monkeypatch.delenv("COMPAIRR_TIMING")
+        trace.refresh()
+    assert routes == [["card"], ["host"]]
+    assert outs[0] == outs[1] and len(outs[0]) > 0
