@@ -764,6 +764,30 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
     return a, b
 
 
+def _width_counts(db1: SeqDB, db2: SeqDB, lmax: int, pa: dict,
+                  pb: dict) -> dict:
+    """The row-width counts of a tile-route run, for its traced spans:
+    chunks (plane words a row: kernels.plane_chunks of lpad), lpad,
+    rows_long (rows that reach the last chunk, longer than 32 (chunks -
+    1)) and plane_bytes (bytes of the residue planes and reversed planes
+    the derive built; none on the CPU), each set counted once, so a
+    self-comparison's one set and one derive once."""
+    from . import kernels as K
+
+    chunks = K.plane_chunks(lmax)
+    sides = [(db1, pa)] if db2 is db1 else [(db1, pa), (db2, pb)]
+    return {
+        "chunks": chunks,
+        "lpad": lmax,
+        "rows_long": sum(
+            int(np.count_nonzero(db.lengths > K.PLANE_BITS * (chunks - 1)))
+            for db, _ in sides),
+        "plane_bytes": sum(
+            p[k].numel() * p[k].element_size() for _, p in sides
+            for k in ("planes", "rplanes") if p.get(k) is not None),
+    }
+
+
 # full-result prefetch for the tile route: the whole find_pairs call
 # runs on the worker, so the device phases overlap the host
 # duplicate-check phase. key -> (db1, db2, thread, holder), holder
@@ -1078,8 +1102,12 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
             counts = np.concatenate([c.cpu().numpy() for c in parts])
             nz = counts > 0
             filtered.append((sw[nz], counts[nz], cls))
+        widths = {}  # the row-width counts, on the traced spans alone
         if tm.enabled:
+            widths = _width_counts(db1, db2, lmax, pa, pb)
             tm.add("upload_bytes", K.UPLOAD_BYTES - up0)
+            for key, n in widths.items():
+                tm.add(key, n)
             tm.add("tiles", w)
             tm.add("tiles_matched", sum(len(fw) for fw, _, _ in filtered))
         tm.lap("count")
@@ -1106,6 +1134,8 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
                     if sp:
                         sp.count("words", cnt)
                         sp.count("upload_bytes", K.UPLOAD_BYTES - up0)
+                        for key, n in widths.items():
+                            sp.count(key, n)
                 di = (di + 1) % n_dev
                 if cnt:
                     with trace.span("engine.decode") as sp:

@@ -175,10 +175,11 @@ def _planted_db(n, len_range, seed, nt=False, src=None, frac=0.2,
     )
 
 
-def _planted_pair(lpad, v_offset=0):
+def _planted_pair(lpad, v_offset=0, nt=None):
     """Two planted sets whose rows pad to lpad (24: amino acids up to
-    23 long; above 32, nucleotides: 48 up to 47 long, and so on)."""
-    nt = lpad > 32
+    23 long; above 32, nucleotides unless nt is False: 48 up to 47
+    long, and so on)."""
+    nt = lpad > 32 if nt is None else nt
     lr = (lpad - 8, lpad - 2)
     d1 = _planted_db(2000, lr, 41, nt, v_offset=v_offset)
     return d1, _planted_db(2500, lr, 42, nt, src=d1, v_offset=v_offset)
@@ -296,6 +297,27 @@ def test_tile_kernels_equal_plain(cuda, tile, lpad):
         assert _straddles(key, int((a["orig"] >= 0).sum()), tile)
         _check_tiles_equal_plain(a, b, streams, cuda, tile, xself,
                                  ds=(1, 2, 3))
+
+
+def test_tile_kernels_long_amino_acid_rows(cuda):
+    """Amino-acid rows of 32 to 39 residues at lpad 40, as an IGH
+    cohort's long junctions make them: two chunks of five planes (C = 2,
+    P = 5, the compile-time path) at the route's 512-row tiles, on every
+    tile class, d 1 to 3 on the Hamming class; two sets with
+    exclude_self off and on, and a self-comparison; pair for pair
+    against the plain version."""
+    d1, d2 = _planted_pair(40, nt=False)
+    assert d1.pad_value == 20 and max(d1.longest, d2.longest) > 32
+    classes = set()
+    for self_cmp, xself in ((False, False), (False, True), (True, True)):
+        a, b, streams = _tile_cases(d1, d2, cuda, 512, self_cmp)
+        assert a["seqs"].shape[1] == 40
+        assert tuple(a["planes"].shape[1:]) == (2, 5)
+        assert tuple(a["rplanes"].shape[1:]) == (2, 5)
+        classes |= {c for _w, c in streams}
+        _check_tiles_equal_plain(a, b, streams, cuda, 512, xself,
+                                 ds=(1, 2, 3))
+    assert classes == {0, 1, 2}
 
 
 @pytest.mark.parametrize("tile", [128, 512])
