@@ -47,7 +47,7 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      the matrix of the tile route's pairs must sum to 24,865,230 and
      equal dense_matrix's cell for cell;
  10. times both tile kernels with CUDA events at phase 7's shapes (count
-     once per stream, extract once per slab, as find_pairs calls them),
+     and extract once per stream, as find_pairs calls them),
      their plain versions over the same tiles, their bounds, their
      design floors (tile_floor: C (P + 2) integer operations an
      equal-key pair, 2 C (P + 2) a key-distance-1 pair), and
@@ -887,11 +887,10 @@ def tile_inputs(d1, d2, spec, dev, tile=None):
     from compairr_tpu_torch.ops import engine as E
     from compairr_tpu_torch.ops import kernels as K
 
-    t, s_extract, lpad, by_vjl, indels = E._pair_plan(d1, d2, spec,
-                                                      dev.type)
+    t, lpad, by_vjl, indels = E._pair_plan(d1, d2, spec, dev.type)
     tile = tile or t
-    (a, _, ka), (b, _, kb) = E._sparse_inputs(d1, d2, tile, by_vjl, lpad,
-                                              dev, indels)
+    (a, ka), (b, kb) = E._sparse_inputs(d1, d2, tile, by_vjl, lpad, dev,
+                                        indels)
     work = E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
     eq, pm = E.classify_worklist(work, ka, d1.n, kb, d2.n, tile, tile)
     if indels:
@@ -901,7 +900,7 @@ def tile_inputs(d1, d2, spec, dev, tile=None):
         parts = [(eq, K.CLS_HAMMING)]
     streams = [(E.order_colmajor(work[m]), c) for m, c in parts if m.any()]
     return {"a": a, "b": b, "keys": (ka, d1.n, kb, d2.n), "tile": tile,
-            "lpad": lpad, "s_extract": s_extract, "streams": streams,
+            "lpad": lpad, "streams": streams,
             "spec": spec, "tiles": len(work)}
 
 
@@ -914,11 +913,26 @@ def tile_kw(p, cls, d=None, xself=None):
     )
 
 
+def matched_offsets(work, counts, dev):
+    """The matched tiles of work (counts: count_tiles' host counts) and
+    extract_tiles' pair-mode arguments for them, as find_pairs makes
+    them: (worklist on dev, offsets on dev, total)."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    nz = counts > 0
+    mc = counts[nz].astype(np.int64)
+    return (K.upload_worklist(work[nz], dev),
+            torch.from_numpy(np.cumsum(mc) - mc).to(dev), int(mc.sum()))
+
+
 def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
     """count_tiles and extract_tiles against their plain versions over
     every tile of every stream of p: (largest count difference, number
     of records in one record set and not the other plus the kernel's
-    repeated word indices, tiles, matches).
+    repeated word indices plus the pairs of the pair mode in one pair
+    set and not the other, tiles, matches).
     ds: the distances the Hamming class is also run at."""
     import torch
 
@@ -941,14 +955,30 @@ def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
                 prec = (pidx.astype(np.int64) << 32) | pbits
                 diff = len(np.setxor1d(rec, prec))
                 repeated = len(idx) - len(np.unique(idx))
-                bad += diff + repeated
+                mw, offs, n = matched_offsets(work, want.cpu().numpy(),
+                                              wd.device)
+                pairs = [
+                    [x.cpu().numpy().astype(np.int64) for x in r] for r in (
+                        K.extract_tiles(p["a"], p["b"], mw, offsets=offs,
+                                        total=n, **kw),
+                        K.extract_tiles_plain(p["a"], p["b"], mw,
+                                              offsets=offs, total=n, **kw))
+                ]
+                tid = np.repeat(np.arange(len(offs)),
+                                np.diff(np.append(offs.cpu().numpy(), n)))
+                gs, ws = (np.stack([tid, i1, i2], 1) for i1, i2 in pairs)
+                gs, ws = (x[np.lexsort(x.T[::-1])] for x in (gs, ws))
+                pdiff = (int((gs != ws).any(1).sum()) if gs.shape == ws.shape
+                         else abs(len(gs) - len(ws)) + 1)
+                bad += diff + repeated + pdiff
                 tiles += len(work)
                 matched += total
                 print(f"  {label}: class {cls} d={kw['differences']} "
                       f"exclude_self={kw['exclude_self']}: {len(work)} "
                       f"tiles, {total} matches, equal counts "
                       f"{torch.equal(got, want)}, {len(rec)} records, "
-                      f"{diff} differ, {repeated} repeated word indices")
+                      f"{diff} differ, {repeated} repeated word indices; "
+                      f"pair mode: {n} pairs, {pdiff} differ or repeat")
     return worst, bad, tiles, matched
 
 
@@ -1628,13 +1658,13 @@ def tile_route_timing(a, b, spec, label):
     """Timing only, no plain version: find_pairs on the card (its wall,
     phase split, launches and pairs (i1, i2), every count set to 0 just
     before), then
-    count_tiles over each worklist stream and extract_tiles over each
-    slab of the nonzero tiles, once each after one warm call (CUDA
-    events), with their bounds. The count's bound takes the pair counts
-    of the whole run (every equal-key pair lies in a Hamming or both
-    tile, every key-distance-1 pair in a both or indel-only tile), so
-    no per-tile count over millions of tiles is needed; the extract's
-    counts its few slabs' pairs."""
+    count_tiles over each worklist stream and extract_tiles (pair mode)
+    over each stream's nonzero tiles, once each after one warm call
+    (CUDA events), with their bounds. The count's bound takes the pair
+    counts of the whole run (every equal-key pair lies in a Hamming or
+    both tile, every key-distance-1 pair in a both or indel-only tile),
+    so no per-tile count over millions of tiles is needed; the
+    extract's counts its matched tiles' pairs."""
     import torch
 
     from compairr_tpu_torch.ops import engine as E
@@ -1659,20 +1689,19 @@ def tile_route_timing(a, b, spec, label):
         count_ms += cuda_ms(lambda: last.update(
             out=K.count_tiles(tp["a"], tp["b"], wd, **kw)), reps=1, warm=1)
         counts = last["out"].cpu().numpy()
-        filtered.append((work[counts > 0], counts[counts > 0], cls))
+        filtered.append((work, counts, cls))
     total = sum(int(c.sum()) for _, c, _ in filtered)
-    k_cap = E.extract_capacity(total, tp["tile"])
-    slabs = [(fw[s0:s1], cls, k) for fw, tc, cls in filtered
-             for s0, s1, k in E.pack_slabs(tc, tp["s_extract"], k_cap)]
     extract_ms = 0.0
-    words = 0
-    for slab, cls, k in slabs:
-        wd = K.upload_worklist(slab, dev)
+    matched = []
+    for work, counts, cls in filtered:
+        if not counts.any():
+            continue
+        mw, offs, n = matched_offsets(work, counts, dev)
         kw = tile_kw(tp, cls)
-        extract_ms += cuda_ms(lambda: last.update(
-            out=K.extract_tiles(tp["a"], tp["b"], wd, k=k, **kw)),
+        extract_ms += cuda_ms(lambda: K.extract_tiles(
+            tp["a"], tp["b"], mw, offsets=offs, total=n, **kw),
             reps=1, warm=1)
-        words += last["out"][2]
+        matched.append((work[counts > 0], cls))
     ka, na, kb, nb = tp["keys"]
     eq = key_pairs(ka[:na], kb[:nb])
     pm = [key_pairs(ka[:na], kb[:nb], s) for s in (1, -1)] \
@@ -1680,8 +1709,8 @@ def tile_route_timing(a, b, spec, label):
     cb = tile_bound(tp, tp["streams"],
                     4 * sum(len(w) for w, _ in tp["streams"]), name,
                     pairs=(eq, tuple(map(sum, zip(*pm)))))
-    eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
-                    8 * words + 4 * len(slabs), name)
+    eb = tile_bound(tp, matched,
+                    8 * total + 8 * sum(len(w) for w, _ in matched), name)
     cf, ef = tile_floor(tp, cb, name), tile_floor(tp, eb, name)
     print(f"  {label}: route {route}, {len(got[0])} pairs, launches "
           f"{launches}, find_pairs {wall:.6f} s, by phase (s) {split}; "
@@ -1691,7 +1720,8 @@ def tile_route_timing(a, b, spec, label):
           f"{cb['bound_ms']:.6f} ms by {cb['bound_by']}; "
           f"{cb['equal_key_pairs']} equal-key and "
           f"{cb['key_distance_1_pairs']} key-distance-1 pairs, "
-          f"{cb['ops']:.4g} ops), {total} matches in {len(slabs)} slabs: "
+          f"{cb['ops']:.4g} ops), {total} matches in {len(matched)} "
+          f"launches: "
           f"extract_tiles {extract_ms:.4f} ms (design floor "
           f"{ef['floor_ms']:.6f} ms; bound {eb['bound_ms']:.6f} ms by "
           f"{eb['bound_by']}) (CUDA events, 1 launch each after a warm "
@@ -1701,7 +1731,8 @@ def tile_route_timing(a, b, spec, label):
             "tile": tp["tile"],
             "streams": [(len(w), c) for w, c in tp["streams"]],
             "count_ms": count_ms, "count_bound": cb, "count_floor": cf,
-            "matches": total, "slabs": len(slabs), "extract_ms": extract_ms,
+            "matches": total, "extract_launches": len(matched),
+            "extract_ms": extract_ms,
             "extract_bound": eb, "extract_floor": ef}, got[:2]
 
 
@@ -1901,7 +1932,7 @@ def count_spans(d1, d2, spec, n_dev):
     at least a span), from the same host worklist and classes."""
     from compairr_tpu_torch.ops import engine as E
 
-    tile, _, _, by_vjl, indels = E._pair_plan(d1, d2, spec, "cuda")
+    tile, _, by_vjl, indels = E._pair_plan(d1, d2, spec, "cuda")
     oa, ka, _ = E.pack_keys(d1, tile, by_vjl)
     _, kb, _ = E.pack_keys(d2, tile, by_vjl)
     work = E.worklist_from_keys(ka, d1.n, kb, d2.n, int(indels), tile, tile)
@@ -2420,40 +2451,37 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             pms = (time.perf_counter() - t0) * 1e3
             counts = K.count_tiles(a, b, wd, **kw).cpu().numpy()
-            nz = counts > 0
-            filtered.append((work[nz], counts[nz], cls))
+            filtered.append((work, counts, cls))
             count_ms += ms
             count_plain_ms += pms
             print(f"  count_tiles class {cls}: {len(work)} tiles, "
                   f"{ms:.4f} ms (CUDA events, 10 launches), plain "
                   f"{pms:.1f} ms")
         total = sum(int(c.sum()) for _, c, _ in filtered)
-        k_cap = E.extract_capacity(total, tp["tile"])
-        slabs = [
-            (fw[s0:s1], cls, k)
-            for fw, tc, cls in filtered
-            for s0, s1, k in E.pack_slabs(tc, tp["s_extract"], k_cap)
-        ]
         extract_ms = extract_plain_ms = 0.0
-        words = 0
-        for slab, cls, k in slabs:
-            wd = K.upload_worklist(slab, dev)
-            kw = tile_kw(tp, cls)
-            ms = cuda_ms(lambda: K.extract_tiles(a, b, wd, k=k, **kw),
-                         reps=5)
-            words += K.extract_tiles(a, b, wd, k=k, **kw)[2]
+        matched = []
+        for work, counts, cls in filtered:
+            if not counts.any():
+                continue
+            mw, offs, n = matched_offsets(work, counts, dev)
+            kw = dict(tile_kw(tp, cls), offsets=offs, total=n)
+            ms = cuda_ms(lambda: K.extract_tiles(a, b, mw, **kw), reps=5)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            K.extract_tiles_plain(a, b, wd, **kw)
+            K.extract_tiles_plain(a, b, mw, **kw)
+            torch.cuda.synchronize()
             pms = (time.perf_counter() - t0) * 1e3
             extract_ms += ms
             extract_plain_ms += pms
-            print(f"  extract_tiles class {cls}: slab of {len(slab)} tiles, "
-                  f"k {k}, {ms:.4f} ms (CUDA events, 5 calls, copy-back "
-                  f"included), plain {pms:.1f} ms")
+            matched.append((work[counts > 0], cls))
+            print(f"  extract_tiles class {cls}: {len(offs)} matched tiles, "
+                  f"{n} pairs, {ms:.4f} ms (CUDA events, 5 calls, the "
+                  f"error flag's read included), plain {pms:.1f} ms")
         cb = tile_bound(tp, tp["streams"],
                         4 * sum(len(w) for w, _ in tp["streams"]), name)
-        eb = tile_bound(tp, [(s, c) for s, c, _ in slabs],
-                        8 * words + 4 * len(slabs), name)
+        eb = tile_bound(tp, matched,
+                        8 * total + 8 * sum(len(w) for w, _ in matched),
+                        name)
         cf, ef = tile_floor(tp, cb, name), tile_floor(tp, eb, name)
         _, wall, split = timed(
             lambda: E.find_pairs(d1, d2i, spec_i, device=DEVICE))
@@ -2476,7 +2504,7 @@ def main(argv) -> int:
             "count_bound": cb, "count_floor": cf, "extract_ms": extract_ms,
             "extract_plain_ms": extract_plain_ms, "extract_bound": eb,
             "extract_floor": ef,
-            "slabs": len(slabs), "words": words, "matches": total,
+            "extract_launches": len(matched), "matches": total,
             "find_pairs_s": wall, "find_pairs_phases_s": split,
         }
 

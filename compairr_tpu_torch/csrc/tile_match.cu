@@ -12,7 +12,12 @@
 //                  mask packed 32 columns to a uint32 word, and the nonzero
 //                  words appended as (word_idx, word_bits) records, where
 //                  word_idx = tile * TM * (TN/32) + row * (TN/32) + word, the
-//                  JAX package's flat index.
+//                  JAX package's flat index. In pair mode (a runtime flag,
+//                  pair_a set) the same instantiations write each match as
+//                  its pair of original indices instead, tile t's into the
+//                  slots offsets[t] .. offsets[t + 1] - 1 that the caller
+//                  scanned from count_tiles' counts, so nothing is left to
+//                  decode on the host.
 //
 // Both test a pair with the function of _cached_key_match
 // (pallas_kernels.py:229-320):
@@ -70,7 +75,14 @@
 //     extract_tiles ballots each row's word and reserves the nonzero
 //     words of a step with one atomicAdd a warp. Each (row, word) is
 //     visited once, so no word is appended twice; records come back in
-//     no fixed order;
+//     no fixed order. In pair mode lane 0 reserves the step's hits (the
+//     ballots' popcounts) from a cursor in shared memory, and each
+//     hitting lane writes its pairs at its rank among them, row by row:
+//     a tile's pairs fill its slots in no fixed order. A warp whose hits
+//     would pass the tile's slots writes nothing, and a block whose
+//     cursor ends other than at its slot count sets the error flag, so
+//     offsets that disagree with the kernel's own matches raise in the
+//     caller and never write out of bounds;
 //   * pads: with exclude_self the pad rows of a (orig -1) are skipped,
 //     since their one possible pair, a pad's own twin in a
 //     self-comparison, is dropped anyway; without it a pad row is a run
@@ -120,6 +132,24 @@ struct Args {
   int32_t* word_idx;
   uint32_t* word_bits;
   int32_t* counter;
+  // extract_tiles' pair mode, on when pair_a is set: tile t's pairs go to
+  // slots offsets[t] .. offsets[t + 1] - 1 (total after the last tile) of
+  // pair_a (a original indices) and pair_b (b original indices); error
+  // is set to 1 where a tile's matches do not fill its slots exactly
+  const long long* offsets;  // [n_tiles]
+  long long total;
+  int32_t* pair_a;
+  int32_t* pair_b;
+  int32_t* error;
+};
+
+// A block's pair slots (pair mode): the first, their number (-1 where the
+// offsets are out of order or out of range: nothing is then written), and
+// the cursor in shared memory that the warps reserve from.
+struct Slots {
+  long long base;
+  int cap;
+  int* cursor;
 };
 
 // Indel-class tiles shorter than this take units of half the rows:
@@ -395,7 +425,8 @@ __device__ __forceinline__ Stage layout(unsigned char* smem, const Args& p,
 // repeat the last row and are masked out.
 template <int CT, int PT, bool kIndel, bool kExtract, bool kShort>
 __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
-                                         int a0, int row0, int nrows,
+                                         const Slots& slots, int a0,
+                                         int b0, int row0, int nrows,
                                          long long key, int lo, int eq_lo,
                                          int eq_hi, int hi, int c0, int cc,
                                          int lane, int& cnt) {
@@ -408,10 +439,13 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
         static_cast<size_t>(a0 + row0) * p.n_chunks * p.n_planes;
     a.load(p, p.a_pl + off, kIndel ? p.a_rpl + off : nullptr, nrows);
   }
+  const bool pairs = kExtract && p.pair_a != nullptr;
   int oa[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    oa[r] = p.exclude_self ? p.a_orig[a0 + row0 + min(r, nrows - 1)] : 0;
+    oa[r] = p.exclude_self || pairs
+                ? p.a_orig[a0 + row0 + min(r, nrows - 1)]
+                : 0;
   }
   const uint32_t valid = (1u << nrows) - 1u;
   const int la = static_cast<int>(key & 0xFFFF);
@@ -449,7 +483,29 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
         bits[r] = __ballot_sync(kFull, (hm >> r) & 1u);
         nz += bits[r] != 0;
       }
-      if (nz) {
+      if (nz && pairs) {
+        int n = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) n += __popc(bits[r]);
+        int pos = 0;
+        if (lane == 0) pos = atomicAdd(slots.cursor, n);
+        pos = __shfl_sync(kFull, pos, 0);
+        if (pos + n <= slots.cap) {
+          const unsigned below = (1u << lane) - 1u;
+          const long long at = slots.base + pos;
+          const int ob = hm ? p.b_orig[b0 + j] : 0;
+          int rank = 0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if ((hm >> r) & 1u) {
+              const long long slot = at + rank + __popc(bits[r] & below);
+              p.pair_a[slot] = oa[r];
+              p.pair_b[slot] = ob;
+            }
+            rank += __popc(bits[r]);
+          }
+        }
+      } else if (nz) {
         int pos = 0;
         if (lane == 0) pos = atomicAdd(p.counter, nz);
         pos = __shfl_sync(kFull, pos, 0);
@@ -479,9 +535,21 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
   const int t = blockIdx.x;
   const int a0 = p.work[2 * t];
   const int b0 = p.work[2 * t + 1];
+  const bool pairs = kExtract && p.pair_a != nullptr;
+  Slots slots = {0, 0, &s_total};
+  if (pairs) {
+    slots.base = p.offsets[t];
+    const long long end = t + 1 < static_cast<int>(gridDim.x)
+                              ? p.offsets[t + 1]
+                              : p.total;
+    const bool ordered = slots.base >= 0 && slots.base <= end &&
+                         end <= p.total && end - slots.base <= (1 << 30);
+    slots.cap = ordered ? static_cast<int>(end - slots.base) : -1;
+  }
   // block-uniform exit, before any barrier: an invalid tile counts 0
   if (a0 < 0 || b0 < 0 || a0 >= p.npad_a || b0 >= p.npad_b) {
     if (!kExtract && threadIdx.x == 0) p.counts[t] = 0;
+    if (pairs && threadIdx.x == 0 && slots.cap != 0) *p.error = 1;
     return;
   }
   const int m = min(p.tile_m, p.npad_a - a0);
@@ -561,8 +629,8 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
       for (int g = (warp - u) & (kWarps - 1); g < n_units; g += kWarps) {
         const int row0 = rs + g * R;
         run_unit<CT, PT, kIndel, kExtract, kShort>(
-            p, s, a0, row0, min(R, re - row0), key, lo, s.eq_lo[rs],
-            s.eq_hi[rs], hi, c0, cc, lane, cnt);
+            p, s, slots, a0, b0, row0, min(R, re - row0), key, lo,
+            s.eq_lo[rs], s.eq_hi[rs], hi, c0, cc, lane, cnt);
       }
       u += n_units;
     };
@@ -583,6 +651,10 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
     if (lane == 0 && cnt) atomicAdd(&s_total, cnt);
     __syncthreads();
     if (threadIdx.x == 0) p.counts[t] = s_total;
+  } else if (pairs) {
+    // every warp's reservations made: the cursor holds the tile's matches
+    __syncthreads();
+    if (threadIdx.x == 0 && s_total != slots.cap) *p.error = 1;
   }
 }
 
@@ -728,7 +800,14 @@ int count_tiles_launch(const void* a_planes, const void* a_rplanes,
 // from atomicAdd(counter, n) into word_idx (int32 [k]) and word_bits
 // (uint32 [k]) while the slot is below k. counter (int32, zeroed by the
 // caller) ends as the number of nonzero words, which may exceed k: the
-// caller checks. Other arguments as count_tiles_launch.
+// caller checks. With pair_a set (pair mode; k, word_idx, word_bits and
+// counter are then unused) each match is written instead as its original
+// indices, a's to pair_a and b's to pair_b (int32 [total] each), tile t's
+// in the slots offsets[t] .. offsets[t + 1] - 1 (int64 [n_tiles]; total
+// after the last tile) in no fixed order; error (int32, zeroed by the
+// caller) is set to 1 where a tile's matches do not fill its slots, and
+// such a tile writes no slot past them. Other arguments as
+// count_tiles_launch.
 int extract_tiles_launch(const void* a_planes, const void* a_rplanes,
                          const void* a_key, const void* a_orig,
                          const void* b_planes, const void* b_rplanes,
@@ -738,7 +817,8 @@ int extract_tiles_launch(const void* a_planes, const void* a_rplanes,
                          int n_planes, int lpad, int differences, int cls,
                          int exclude_self, int key_bytes, int k,
                          void* word_idx, void* word_bits, void* counter,
-                         void* stream) {
+                         const void* offsets, long long total, void* pair_a,
+                         void* pair_b, void* error, void* stream) {
   Args p = make_args(a_planes, a_rplanes, a_key, a_orig, b_planes,
                      b_rplanes, b_key, b_orig, work, npad_a, npad_b, tile_m,
                      tile_n, n_chunks, n_planes, lpad, differences, cls,
@@ -747,6 +827,14 @@ int extract_tiles_launch(const void* a_planes, const void* a_rplanes,
   p.word_idx = static_cast<int32_t*>(word_idx);
   p.word_bits = static_cast<uint32_t*>(word_bits);
   p.counter = static_cast<int32_t*>(counter);
+  p.offsets = static_cast<const long long*>(offsets);
+  p.total = total;
+  p.pair_a = static_cast<int32_t*>(pair_a);
+  p.pair_b = static_cast<int32_t*>(pair_b);
+  p.error = static_cast<int32_t*>(error);
+  if (p.pair_a && (!p.pair_b || !p.offsets || !p.error || total < 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return run(p, n_tiles, true, stream);
 }
 

@@ -20,7 +20,9 @@ two device routes then run hand-written CUDA kernels (ops/kernels.py):
     float64;
   * the tile route of find_pairs (csrc/tile_match.cu) counts the
     matches of every worklist tile, drops the empty tiles and extracts
-    the matched pairs of the rest as packed bit words. It serves every
+    the matched pairs of the rest in one launch a tile class, each
+    tile's pairs of original indices written to the slots that the
+    prefix sum of the counts gives it. It serves every
     one-indel run (-d 1 -i), every run under COMPAIRR_PIGEONHOLE=0 and
     every pigeonhole candidate-budget overflow (card_route).
 
@@ -661,9 +663,6 @@ def dense_matrix(
     return out
 
 
-K_EXTRACT = 1 << 15  # match-word capacity per extraction call
-K_EXTRACT_BIG = 1 << 18  # capacity for match-dense workloads
-
 # TILES_PER_DEVICE_MIN: worklist tiles a card at least before
 # find_pairs spreads over another card. The split is in effect off: no
 # measurement has resolved what a card's first use in a process costs.
@@ -705,23 +704,22 @@ def card_route(spec: MatchSpec) -> bool:
 
 def _pair_plan(db1: SeqDB, db2: SeqDB, spec: MatchSpec, device_type: str,
                tile: Optional[int] = None):
-    """Static launch parameters of a tile-route run: (tile, s_extract,
-    lpad, by_vjl, use_indels).
+    """Static launch parameters of a tile-route run: (tile, lpad, by_vjl,
+    use_indels).
 
     Tiles are 128 on the CPU and 512 on CUDA, unless `tile` is given:
     on an NVIDIA H100 80GB HBM3 at 700 W, 512-row tiles were no slower
     than 128-row ones at any size measured (30,000 to 4M rows a set)
     and faster from 1M, where the host worklist and the per-tile cost
-    of 16x more tiles outweigh the padding (PERF.md "Routing"). Extraction slabs hold 2^24 match
-    words (s_extract tiles). lpad is the longest sequence rounded up to
-    8: the kernels read rows as 4-byte words."""
+    of 16x more tiles outweigh the padding (PERF.md "Routing"). lpad is
+    the longest sequence rounded up to 8: the kernels read rows as
+    4-byte words."""
     lmax = _round_up(int(max(db1.longest, db2.longest, 1)), 8)
     by_vjl = not spec.ignore_genes
     use_indels = spec.indels and spec.differences == 1
     if tile is None:
         tile = 512 if device_type == "cuda" else TILE_M
-    s_extract = max(64, (1 << 24) // (tile * (tile // 32)))
-    return tile, s_extract, lmax, by_vjl, use_indels
+    return tile, lmax, by_vjl, use_indels
 
 
 def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
@@ -732,8 +730,8 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
     card), pad salt 0 for set 1 and 2 for set 2. The key rows take one
     width for both sets, from the largest real key of either, so the
     kernels always get two rows of one type. A self-comparison shares one
-    derive, pad band and all. Returns a pair of (rows, orig int64[npad],
-    key int64[npad]), one for each set."""
+    derive, pad band and all. Returns a pair of (rows, key int64[npad]),
+    one for each set."""
     from . import kernels as K
 
     tm = _PhaseTimer("engine")
@@ -751,9 +749,7 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
             db, order, npad, lmax, indels, key, salt, dev, wide=wide,
             planes=dev.type == "cuda",
         )
-        orig = np.full(npad, -1, dtype=np.int64)
-        orig[: db.n] = order
-        return rows, orig, key
+        return rows, key
 
     up0 = K.UPLOAD_BYTES
     a = side(db1, order_a, key_a, npad_a, 0)
@@ -836,37 +832,6 @@ def prefetch_find_pairs(db1: SeqDB, db2: SeqDB, spec: MatchSpec,
     thread.start()
 
 
-def extract_capacity(total_matches: int, tile: int) -> int:
-    """Matches a slab may hold: match-dense runs (more than 2^20
-    matches, or 512 tiles) take bigger slabs, fewer calls."""
-    if total_matches > (1 << 20) or tile > TILE_M:
-        return K_EXTRACT_BIG
-    return K_EXTRACT
-
-
-def pack_slabs(tile_counts: np.ndarray, s_extract: int, k_cap: int):
-    """Greedy extraction slabs over tiles with nonzero match counts, in
-    order: (start, end, k) with at most s_extract tiles and k_cap
-    matches a slab (a single tile always fits: its words are at most
-    tile * tile / 32 <= k_cap). k, the record buffer, is the power of
-    two >= the slab's matches, at least 4096: matched words <= matches,
-    so the buffer cannot overflow."""
-    fw = len(tile_counts)
-    s0 = 0
-    while s0 < fw:
-        s1 = s0 + 1
-        acc = int(tile_counts[s0])
-        while (
-            s1 < fw
-            and s1 - s0 < s_extract
-            and acc + tile_counts[s1] <= k_cap
-        ):
-            acc += int(tile_counts[s1])
-            s1 += 1
-        yield s0, s1, 1 << max(12, (acc - 1).bit_length())
-        s0 = s1
-
-
 def variant_join_route(db1: SeqDB, db2: SeqDB, spec: MatchSpec) -> bool:
     """True when find_pairs will resolve this run through the
     asymmetric d=1 variant join (sparse_host.prepare_variant_join) —
@@ -934,9 +899,9 @@ def find_pairs(
     The tile route spreads over `devices` (a list, which may repeat a
     device; by default utils.device.local_devices of `device`): each
     class stream of the worklist is cut into contiguous spans of at
-    least TILES_PER_DEVICE_MIN tiles, one a device, whose counts join
-    in span order, and extraction slabs go round the devices, so the
-    pair list is the same for any device count. want_dist=False lets
+    least TILES_PER_DEVICE_MIN tiles, one a device, and each device
+    extracts the matched tiles of its spans, so the pair set is the
+    same for any device count. want_dist=False lets
     the tile route skip the host distance recompute (dist is then
     None); only the pairs file with --distance reads it.
     """
@@ -1025,6 +990,8 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
             _note_route(route)
             return with_diagonal(*ph)
 
+    import torch
+
     from ..utils.device import local_devices, resolve_device
     from . import kernels as K
 
@@ -1035,16 +1002,14 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
     dev = devs[0]
     tm = _PhaseTimer("engine")
     tm.mark()
-    tile, s_extract, lmax, by_vjl, use_indels = _pair_plan(
-        db1, db2, spec, dev.type
-    )
+    tile, lmax, by_vjl, use_indels = _pair_plan(db1, db2, spec, dev.type)
     _note_route("tiles", tile)
     tm.lap("pair_plan")
     delta = 1 if use_indels else 0
     # a self-comparison shares one derive, pad band and all: each pad
     # then key-matches its own twin, and exclude_self (forced above for
     # every same-set run) drops that pair through orig -1
-    (pa, orig_a, key_a), (pb, orig_b, key_b) = _sparse_inputs(
+    (pa, key_a), (pb, key_b) = _sparse_inputs(
         db1, db2, tile, by_vjl, lmax, dev, use_indels
     )
     tm.lap("inputs")
@@ -1086,22 +1051,24 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
 
         # phase 1: per-tile match counts, every stream's device spans
         # launched before the first copy back; empty tiles are dropped
-        # and the exact counts size each extraction call's record buffer
         up0 = K.UPLOAD_BYTES
         launched = []
         for sw, cls in streams:
             nd = max(1, min(n_dev, len(sw) // TILES_PER_DEVICE_MIN))
             span = [len(sw) * di // nd for di in range(nd + 1)]
-            launched.append((sw, cls, [
+            launched.append((sw, cls, span, [
                 K.count_tiles(*replicas[di], K.upload_worklist(
                     sw[span[di]:span[di + 1]], devs[di]), cls=cls, **kw)
                 for di in range(nd)
             ]))
-        filtered = []
-        for sw, cls, parts in launched:
-            counts = np.concatenate([c.cpu().numpy() for c in parts])
-            nz = counts > 0
-            filtered.append((sw[nz], counts[nz], cls))
+        filtered = []  # (device, matched tiles, their counts, class)
+        for sw, cls, span, parts in launched:
+            for di, c in enumerate(parts):
+                counts = c.cpu().numpy()
+                nz = counts > 0
+                if nz.any():
+                    filtered.append(
+                        (di, sw[span[di]:span[di + 1]][nz], counts[nz], cls))
         widths = {}  # the row-width counts, on the traced spans alone
         if tm.enabled:
             widths = _width_counts(db1, db2, lmax, pa, pb)
@@ -1109,55 +1076,48 @@ def _find_pairs_route(db1, db2, spec, logger, progress_prompt, exact_groups,
             for key, n in widths.items():
                 tm.add(key, n)
             tm.add("tiles", w)
-            tm.add("tiles_matched", sum(len(fw) for fw, _, _ in filtered))
+            tm.add("tiles_matched", sum(len(fw) for _, fw, _, _ in filtered))
         tm.lap("count")
 
-        # phase 2: greedy-pack tiles into slabs of <= s_extract tiles
-        # and <= k_cap matches (matched words <= matches, so the record
-        # buffer cannot overflow), extract their packed match words,
-        # and decode the words into pairs
-        k_cap = extract_capacity(
-            sum(int(tc.sum()) for _, tc, _ in filtered), tile
-        )
-        wpr = tile // 32  # match-bit words per tile row
-        wpt = tile * wpr  # words per tile
-        done = di = 0
-        for fwork, tile_counts, cls in filtered:
-            for s0, s1, k_slab in pack_slabs(tile_counts, s_extract, k_cap):
-                slab = fwork[s0:s1]
-                with trace.span("kernels.extract") as sp:
-                    up0 = K.UPLOAD_BYTES
-                    widx, wvals, cnt = K.extract_tiles(
-                        *replicas[di], K.upload_worklist(slab, devs[di]),
-                        cls=cls, k=k_slab, **kw,
-                    )
-                    if sp:
-                        sp.count("words", cnt)
-                        sp.count("upload_bytes", K.UPLOAD_BYTES - up0)
-                        for key, n in widths.items():
-                            sp.count(key, n)
-                di = (di + 1) % n_dev
-                if cnt:
-                    with trace.span("engine.decode") as sp:
-                        n0 = len(out1)
-                        widx = widx.astype(np.int64)
-                        tz = widx // wpt
-                        mz = (widx % wpt) // wpr
-                        wc = widx % wpr
-                        ra = slab[tz, 0].astype(np.int64) + mz
-                        rb = slab[tz, 1].astype(np.int64) + wc * 32
-                        for b in range(32):
-                            sel = np.nonzero(
-                                (wvals >> np.uint32(b)) & np.uint32(1)
-                            )[0]
-                            if len(sel):
-                                out1.append(orig_a[ra[sel]])
-                                out2.append(orig_b[rb[sel] + b])
-                        if sp:
-                            sp.count("pairs", sum(len(x) for x in out1[n0:]))
-                done += len(slab)
-                if logger is not None and progress_prompt is not None:
-                    logger.progress_update(done)
+        # phase 2: one extract_tiles launch a class stream and device
+        # span, writing each matched tile's pairs of original indices to
+        # the slots that the exclusive prefix sum of the counts gives it;
+        # each device's pairs then come back in one copy
+        found: list = [[] for _ in range(n_dev)]
+        done = 0
+        for di, fwork, tile_counts, cls in filtered:
+            offsets = np.cumsum(tile_counts, dtype=np.int64) - tile_counts
+            with trace.span("kernels.extract") as sp:
+                up0 = K.UPLOAD_BYTES
+                pairs = K.extract_tiles(
+                    *replicas[di], K.upload_worklist(fwork, devs[di]),
+                    offsets=K.upload(offsets, devs[di]),
+                    total=int(tile_counts.sum()), cls=cls, **kw,
+                )
+                if sp:
+                    sp.count("tiles", len(fwork))
+                    sp.count("pairs", len(pairs[0]))
+                    sp.count("upload_bytes", K.UPLOAD_BYTES - up0)
+                    for key, n in widths.items():
+                        sp.count(key, n)
+            found[di].append(pairs)
+            done += len(fwork)
+            if logger is not None and progress_prompt is not None:
+                logger.progress_update(done)
+        with trace.span("engine.decode") as sp:
+            for parts in found:
+                if not parts:
+                    continue
+                host = torch.stack([
+                    torch.cat([p[k] for p in parts]) for k in (0, 1)
+                ]).cpu().numpy()
+                out1.append(host[0].astype(np.int64))
+                out2.append(host[1].astype(np.int64))
+                if sp:  # bytes copied from a card; none on the CPU
+                    sp.count("d2h_bytes", 0 if parts[0][0].device.type
+                             == "cpu" else host.nbytes)
+            if sp:
+                sp.count("pairs", sum(len(x) for x in out1))
         tm.lap("extract")
 
     if logger is not None and progress_prompt is not None:

@@ -48,6 +48,7 @@ import shutil
 import subprocess
 import threading
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -905,12 +906,10 @@ def count_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
     return out
 
 
-def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
-                        differences: int, cls: int, exclude_self: bool,
-                        tile_m: int, tile_n: int):
-    """Plain PyTorch version of the extract_tiles kernel: the nonzero
-    packed match words of the tiles as host arrays (word_idx int32,
-    word_bits uint32), in ascending word_idx."""
+def _plain_words(a: dict, b: dict, work: torch.Tensor, *, differences: int,
+                 cls: int, exclude_self: bool, tile_m: int, tile_n: int):
+    """The nonzero packed match words of the tiles, (word_idx, word_bits)
+    int64 tensors in ascending word_idx."""
     lpad = a["seqs"].shape[1]
     wpr = tile_n // 32
     shifts = torch.arange(32, dtype=torch.int64, device=work.device)
@@ -923,12 +922,57 @@ def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
         words = (hit.view(len(w), tile_m, wpr, 32).long() << shifts).sum(-1)
         flat = words.reshape(-1)
         nz = flat.nonzero().squeeze(1)
-        idx_parts.append((nz + s * tile_m * wpr).cpu().numpy())
-        bit_parts.append(flat[nz].cpu().numpy())
+        idx_parts.append(nz + s * tile_m * wpr)
+        bit_parts.append(flat[nz])
     if not idx_parts:
-        return np.zeros(0, np.int32), np.zeros(0, np.uint32)
-    return (np.concatenate(idx_parts).astype(np.int32),
-            np.concatenate(bit_parts).astype(np.uint32))
+        empty = torch.zeros(0, dtype=torch.int64, device=work.device)
+        return empty, empty
+    return torch.cat(idx_parts), torch.cat(bit_parts)
+
+
+_SLOTS_MISMATCH = "extract_tiles: a tile's matches do not fill its slots"
+
+
+def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
+                        differences: int, cls: int, exclude_self: bool,
+                        tile_m: int, tile_n: int,
+                        offsets: Optional[torch.Tensor] = None,
+                        total: Optional[int] = None):
+    """Plain PyTorch version of the extract_tiles kernel: the nonzero
+    packed match words of the tiles as host arrays (word_idx int32,
+    word_bits uint32), in ascending word_idx. With offsets and total
+    (pair mode) the words decoded instead: (a original indices, b
+    original indices), int32 [total] tensors, tile t's matches in slots
+    offsets[t] .. offsets[t + 1] - 1 (total after the last tile), in
+    row and column order; raises where a tile's matches do not fill
+    its slots."""
+    kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
+              tile_m=tile_m, tile_n=tile_n)
+    idx, bits = _plain_words(a, b, work, **kw)
+    if offsets is None:
+        return (idx.cpu().numpy().astype(np.int32),
+                bits.cpu().numpy().astype(np.uint32))
+    wpr = tile_n // 32
+    shifts = torch.arange(32, dtype=torch.int64, device=work.device)
+    word, bit = ((bits[:, None] >> shifts) & 1).nonzero(as_tuple=True)
+    w_idx = idx[word]
+    t = w_idx // (tile_m * wpr)
+    ra = work[t, 0].long() + (w_idx // wpr) % tile_m
+    cb = work[t, 1].long() + (w_idx % wpr) * 32 + bit
+    n_t = torch.bincount(t, minlength=len(work))
+    ends = torch.cat([offsets[1:], offsets.new_tensor([total])])
+    if len(work) == 0:
+        if total:
+            raise RuntimeError(_SLOTS_MISMATCH)
+    elif offsets[0] < 0 or not torch.equal(ends - offsets, n_t):
+        raise RuntimeError(_SLOTS_MISMATCH)
+    # the words come tile by tile: each tile's matches are a run of them
+    first = torch.cumsum(n_t, 0) - n_t
+    slot = offsets[t] + torch.arange(len(t), device=work.device) - first[t]
+    out = torch.empty((2, total), dtype=torch.int32, device=work.device)
+    out[0, slot] = a["orig"][ra]
+    out[1, slot] = b["orig"][cb]
+    return out[0], out[1]
 
 
 def _check_sparse_side(side: dict, name: str, dev: torch.device,
@@ -1070,23 +1114,63 @@ def count_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
     return out
 
 
+def _check_offsets(offsets: torch.Tensor, total, work: torch.Tensor,
+                   dev: torch.device) -> None:
+    if (
+        not isinstance(offsets, torch.Tensor)
+        or offsets.dtype != torch.int64
+        or offsets.shape != (work.shape[0],)
+        or not offsets.is_contiguous()
+        or offsets.device != dev
+    ):
+        raise ValueError(
+            f"offsets must be a contiguous int64 [T] tensor on {dev}, one "
+            "slot start a worklist tile")
+    if not isinstance(total, int) or total < 0:
+        raise ValueError(f"total must be an int >= 0, got {total!r}")
+
+
 def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
                   cls: int, exclude_self: bool, tile_m: int, tile_n: int,
-                  k: int):
-    """The nonzero packed match words of the worklist tiles, copied to
-    the host: (word_idx int32[count], word_bits uint32[count], count).
-    Bit i of a word is column 32*word + i of its row; word_idx =
-    tile * tile_m * (tile_n/32) + row * (tile_n/32) + word, the JAX
-    package's flat index. k is the capacity of the record buffer;
-    raises when the tiles hold more than k nonzero words. The rows are
-    count_tiles'. CUDA tensors launch csrc/tile_match.cu, whose records
-    come back in no fixed order; CPU tensors take extract_tiles_plain
-    (ascending word_idx)."""
+                  k: Optional[int] = None,
+                  offsets: Optional[torch.Tensor] = None,
+                  total: Optional[int] = None):
+    """The matches of the worklist tiles, in one of two modes. The rows
+    are count_tiles'.
+
+    Word mode (k): the nonzero packed match words, copied to the host:
+    (word_idx int32[count], word_bits uint32[count], count). Bit i of a
+    word is column 32*word + i of its row; word_idx = tile * tile_m *
+    (tile_n/32) + row * (tile_n/32) + word, the JAX package's flat
+    index. k is the capacity of the record buffer; raises when the
+    tiles hold more than k nonzero words.
+
+    Pair mode (offsets, total): every match as its pair of original
+    indices, (i1, i2) int32 [total] tensors on the rows' device, with
+    no copy to the host. offsets (int64 [T], on the device) gives each
+    tile's first slot: tile t's matches fill slots offsets[t] ..
+    offsets[t + 1] - 1, and the last tile's end at total, so offsets is
+    the exclusive prefix sum of count_tiles' counts and total their
+    sum. Raises where a tile's matches do not fill its slots (one flag
+    read back a call).
+
+    CUDA tensors launch csrc/tile_match.cu, whose records (and pairs
+    within a tile) come in no fixed order; CPU tensors take
+    extract_tiles_plain (ascending word_idx)."""
     dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
-    if work.shape[0] * tile_m * (tile_n // 32) >= 1 << 31:
-        raise ValueError("extract_tiles: word indices would overflow int32")
     kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
               tile_m=tile_m, tile_n=tile_n)
+    if (offsets is None) == (k is None) or (offsets is None) != (total is None):
+        raise ValueError("extract_tiles takes k (word mode) or offsets and "
+                         "total (pair mode)")
+    if offsets is not None:
+        _check_offsets(offsets, total, work, dev)
+        if dev.type == "cpu":
+            return extract_tiles_plain(a, b, work, offsets=offsets,
+                                       total=total, **kw)
+        return _extract_pairs_cuda(a, b, work, offsets, total, dev, kw)
+    if work.shape[0] * tile_m * (tile_n // 32) >= 1 << 31:
+        raise ValueError("extract_tiles: word indices would overflow int32")
     if dev.type == "cpu":
         idx, bits = extract_tiles_plain(a, b, work, **kw)
         count = len(idx)
@@ -1101,7 +1185,7 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
                     *_tile_args(a, b, work, cls, tile_m, tile_n,
                                 differences, exclude_self),
                     k, buf[1:].data_ptr(), buf[1 + k :].data_ptr(),
-                    buf.data_ptr(),
+                    buf.data_ptr(), None, 0, None, None, None,
                     torch.cuda.current_stream(dev).cuda_stream,
                 )
             _raise_on(lib, "extract_tiles", err)
@@ -1118,6 +1202,38 @@ def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
             f"buffer of {k}"
         )
     return idx, bits, count
+
+
+def _extract_pairs_cuda(a: dict, b: dict, work: torch.Tensor,
+                        offsets: torch.Tensor, total: int, dev, kw: dict):
+    """extract_tiles' pair mode on the card: one launch, then the error
+    flag read back."""
+    # one buffer: [a indices (total), b indices (total), error flag]; at
+    # least one slot each, since a null pair_a means word mode
+    slots = max(total, 1)
+    buf = torch.empty(2 * slots + 1, dtype=torch.int32, device=dev)
+    flag = buf[2 * slots:]
+    flag.zero_()
+    if work.shape[0]:
+        lib = _tile_library(a, kw["cls"], kw["tile_m"], kw["tile_n"])
+        with torch.cuda.device(dev):
+            err = lib.extract_tiles_launch(
+                *_tile_args(a, b, work, kw["cls"], kw["tile_m"],
+                            kw["tile_n"], kw["differences"],
+                            kw["exclude_self"]),
+                0, None, None, None, offsets.data_ptr(), total,
+                buf.data_ptr(), buf[slots:].data_ptr(), flag.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on(lib, "extract_tiles", err)
+        _count_launch("extract_tiles")
+    elif total:
+        raise RuntimeError(_SLOTS_MISMATCH)
+    bad = int(flag.item())
+    trace.count("d2h_bytes", flag.element_size())
+    if bad:
+        raise RuntimeError(_SLOTS_MISMATCH)
+    return buf[:total], buf[slots : slots + total]
 
 
 # --------------------------------------------------------------------
@@ -1876,7 +1992,8 @@ _SIGNATURES = {
     },
     "tile_match": {
         "count_tiles_launch": ([_P] * 9 + [_I] * 12 + [_P, _P], _I),
-        "extract_tiles_launch": ([_P] * 9 + [_I] * 13 + [_P] * 4, _I),
+        "extract_tiles_launch": ([_P] * 9 + [_I] * 13 + [_P] * 4 + [_L]
+                                 + [_P] * 4, _I),
         "tile_match_smem_bytes": ([_I] * 5, _I),
         "tile_match_error_string": ([_I], ctypes.c_char_p),
     },

@@ -233,6 +233,35 @@ def _tile_cases(d1, d2, dev, tile, self_cmp, by_vjl=True):
     return a, b, [(E.order_colmajor(w), c) for w, c in streams if len(w)]
 
 
+def _check_pairs_equal_plain(a, b, work, counts, kw, dev):
+    """extract_tiles' pair mode on the matched tiles of work (counts:
+    count_tiles' int32 host counts) against its plain version: each
+    tile's slots, from the exclusive prefix sum of the counts, hold the
+    same pairs (in any order within the tile). Returns the pairs."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    nz = counts > 0
+    mc = counts[nz].astype(np.int64)
+    wd = K.upload_worklist(work[nz], dev)
+    offsets = torch.from_numpy(np.cumsum(mc) - mc).to(dev)
+    total = int(mc.sum())
+    before = K.LAUNCHES["extract_tiles"]
+    got = K.extract_tiles(a, b, wd, offsets=offsets, total=total, **kw)
+    assert K.LAUNCHES["extract_tiles"] == before + int(total > 0)
+    want = K.extract_tiles_plain(a, b, wd, offsets=offsets, total=total,
+                                 **kw)
+    tid = np.repeat(np.arange(len(mc)), mc)
+    (g1, g2), (w1, w2) = ([x.cpu().numpy() for x in r] for r in (got, want))
+    assert g1.dtype == np.int32 and len(g1) == len(g2) == total
+    go, wo = np.lexsort((g2, g1, tid)), np.lexsort((w2, w1, tid))
+    np.testing.assert_array_equal(g1[go], w1[wo])
+    np.testing.assert_array_equal(g2[go], w2[wo])
+    return total
+
+
 def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
     import numpy as np
     import torch
@@ -259,8 +288,11 @@ def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
             np.testing.assert_array_equal(idx[o], pidx)
             np.testing.assert_array_equal(bits[o], pbits)
             assert count == len(pidx)
+            assert _check_pairs_equal_plain(
+                a, b, work, want.cpu().numpy(), kw, dev) == total
             assert K.LAUNCHES["count_tiles"] == before["count_tiles"] + 1
-            assert K.LAUNCHES["extract_tiles"] == before["extract_tiles"] + 1
+            assert K.LAUNCHES["extract_tiles"] == (
+                before["extract_tiles"] + 1 + int(total > 0))
             matched += total
     assert matched > 0
 
@@ -330,6 +362,54 @@ def test_tile_kernels_single_key_tiles(cuda, tile):
                                     by_vjl=False)
         _check_tiles_equal_plain(a, b, streams, cuda, tile, xself,
                                  ds=(1, 2, 3))
+
+
+@pytest.mark.parametrize("lpad", [24, 40])
+def test_extract_tiles_pair_mode_equals_plain(cuda, lpad):
+    """extract_tiles' pair mode, one launch a class, against its plain
+    version at one plane chunk (lpad 24) and two (lpad 40, amino acids)
+    at tiles 128 and 512 (the route's), every class, two sets and a
+    self-comparison; offsets one slot short raise, and the card works
+    on."""
+    import numpy as np
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    d1, d2 = _planted_pair(lpad, nt=False)
+    classes = set()
+    for tile in (128, 512):
+        for self_cmp, xself in ((False, False), (True, True)):
+            a, b, streams = _tile_cases(d1, d2, cuda, tile, self_cmp)
+            assert tuple(a["planes"].shape[1:]) == (-(-lpad // 32), 5)
+            for work, cls in streams:
+                kw = dict(differences=1, cls=cls, exclude_self=xself,
+                          tile_m=tile, tile_n=tile)
+                counts = K.count_tiles(a, b, K.upload_worklist(work, cuda),
+                                       **kw).cpu().numpy()
+                if _check_pairs_equal_plain(a, b, work, counts, kw, cuda):
+                    classes.add(cls)
+    assert classes == {0, 1, 2}
+    # one tile's slots one short, then the total one short
+    a, b, streams = _tile_cases(d1, d2, cuda, 512, False)
+    work, cls = streams[0]
+    kw = dict(differences=1, cls=cls, exclude_self=False, tile_m=512,
+              tile_n=512)
+    counts = K.count_tiles(a, b, K.upload_worklist(work, cuda),
+                           **kw).cpu().numpy()
+    work, mc = work[counts > 0], counts[counts > 0].astype(np.int64)
+    wd = K.upload_worklist(work, cuda)
+    for short in ("a_tile", "total"):
+        c = mc.copy()
+        if short == "a_tile":
+            c[0] -= 1
+        offsets = torch.from_numpy(np.cumsum(c) - c).to(cuda)
+        total = int(c.sum()) - (short == "total")
+        with pytest.raises(RuntimeError, match="do not fill its slots"):
+            K.extract_tiles(a, b, wd, offsets=offsets, total=total, **kw)
+    torch.cuda.synchronize()
+    assert _check_pairs_equal_plain(a, b, work, mc.astype(np.int32), kw,
+                                    cuda) == int(mc.sum())
 
 
 def test_tile_kernels_require_planes(cuda):
@@ -1256,8 +1336,9 @@ def test_bench_kernel_section_on_card(cuda, monkeypatch):
 def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
     """A -m -d 1 -i CLI job under COMPAIRR_TIMING=1 on the card: the
     derive's and the count's uploads count their bytes on their laps
-    (engine.rows_raw, engine.count), every extract span its worklist's
-    upload and its record buffer's copy-back, and the job counts its
+    (engine.rows_raw, engine.count), every extract span (one a class)
+    its worklist's and offsets' upload and its error flag's copy-back,
+    the one decode span the pairs' copy-back, and the job counts its
     kernel library load."""
     from compairr_tpu_torch import cli
     from compairr_tpu_torch.ops import kernels as K
@@ -1295,8 +1376,17 @@ def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
             assert s.counts["upload_bytes"] > 0, name
     (cnt,) = by["engine.count"]
     assert 0 < cnt.counts["tiles_matched"] <= cnt.counts["tiles"]
-    for s in by["kernels.extract"]:
-        assert s.counts["d2h_bytes"] >= 4 * (1 + 2 * 4096)
+    extracts = by["kernels.extract"]
+    assert 1 <= len(extracts) <= len(K.CLASS_NAMES)
+    for s in extracts:
+        assert s.counts["d2h_bytes"] == 4
+        assert s.counts["upload_bytes"] == 16 * s.counts["tiles"]
+    assert sum(s.counts["tiles"] for s in extracts) \
+        == cnt.counts["tiles_matched"]
+    (decode,) = by["engine.decode"]
+    pairs = sum(s.counts["pairs"] for s in extracts)
+    assert decode.counts["pairs"] == pairs > 0
+    assert decode.counts["d2h_bytes"] == 8 * pairs
 
 
 # --------------------------------------------------------------------

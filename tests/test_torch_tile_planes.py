@@ -282,7 +282,7 @@ def test_planes_change_no_count_or_record_against_pallas(
 def test_sparse_inputs_ask_for_planes_only_on_cuda(dbs):
     (_, _), (t1, t2) = dbs
     lpad = teng._round_up(int(max(t1.longest, t2.longest)), 8)
-    (a, _, _), (b, _, _) = teng._sparse_inputs(
+    (a, _), (b, _) = teng._sparse_inputs(
         t1, t2, 128, True, lpad, torch.device("cpu"), True
     )
     for side in (a, b):

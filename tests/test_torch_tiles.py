@@ -304,6 +304,104 @@ def test_extract_tiles_raises_over_capacity(dbs):
         K.extract_tiles(c.ta, c.tb, c.work_t, k=4, **c.kw)
 
 
+# ---- extract_tiles' pair mode ----------------------------------------
+
+
+def _decoded_words(a, b, work, kw):
+    """The pairs of original indices of extract_tiles_plain's words,
+    decoded bit by bit: {tile: sorted [(a orig, b orig)]}."""
+    idx, bits = K.extract_tiles_plain(a, b, work, **kw)
+    wpr = kw["tile_n"] // 32
+    tiles: dict = {}
+    for i, v in zip(idx.tolist(), bits.tolist()):
+        t, rest = divmod(i, kw["tile_m"] * wpr)
+        row, word = divmod(rest, wpr)
+        for bit in range(32):
+            if v >> bit & 1:
+                ra = int(work[t, 0]) + row
+                cb = int(work[t, 1]) + 32 * word + bit
+                tiles.setdefault(t, []).append(
+                    (int(a["orig"][ra]), int(b["orig"][cb])))
+    return {t: sorted(p) for t, p in tiles.items()}
+
+
+def _pair_inputs(lpad, self_cmp, cls):
+    """(rows a, rows b, matched worklist tiles of class cls, their
+    counts) of test_torch_cuda's planted sets at lpad (24: one plane
+    chunk of amino acids; 40: two), at 128-row tiles."""
+    from test_torch_cuda import _planted_pair, _tile_cases
+
+    d1, d2 = _planted_pair(lpad, nt=False)
+    a, b, streams = _tile_cases(d1, d2, torch.device("cpu"), 128, self_cmp)
+    assert a["seqs"].shape[1] == lpad
+    work = next(w for w, c in streams if c == cls)
+    return a, b, work
+
+
+@pytest.mark.parametrize("cls", [K.CLS_HAMMING, K.CLS_BOTH,
+                                 K.CLS_INDEL_ONLY])
+@pytest.mark.parametrize("self_cmp,xself", [(False, False), (False, True),
+                                            (True, True)])
+@pytest.mark.parametrize("lpad", [24, 40])
+def test_extract_tiles_pairs_match_decoded_words(lpad, self_cmp, xself,
+                                                 cls):
+    """Pair mode: each matched tile's pairs of original indices fill
+    exactly the slots that the exclusive prefix sum of count_tiles'
+    counts gives it, and are the pairs of the word mode's records
+    decoded bit by bit."""
+    a, b, work = _pair_inputs(lpad, self_cmp, cls)
+    kw = dict(differences=1, cls=cls, exclude_self=xself, tile_m=128,
+              tile_n=128)
+    wd = K.upload_worklist(work, "cpu")
+    counts = K.count_tiles(a, b, wd, **kw).numpy()
+    nz = counts > 0
+    assert nz.any()
+    work, counts = work[nz], counts[nz].astype(np.int64)
+    wd = K.upload_worklist(work, "cpu")
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    i1, i2 = K.extract_tiles(a, b, wd, offsets=torch.from_numpy(offsets),
+                             total=total, **kw)
+    assert i1.dtype == i2.dtype == torch.int32
+    assert i1.shape == i2.shape == (total,)
+    want = _decoded_words(a, b, wd, kw)
+    assert sorted(want) == list(range(len(work)))
+    for t, (lo, n) in enumerate(zip(offsets.tolist(), counts.tolist())):
+        got = sorted(zip(i1[lo:lo + n].tolist(), i2[lo:lo + n].tolist()))
+        assert got == want[t], t
+    if xself:
+        assert not (i1 == i2).any()
+
+
+@pytest.mark.parametrize("short", ["a_tile", "total"])
+def test_extract_tiles_pairs_raise_on_short_offsets(short):
+    """Offsets one slot short (one tile's slots, or the total) raise:
+    the tiles' matches do not fill their slots."""
+    a, b, work = _pair_inputs(24, False, K.CLS_BOTH)
+    kw = dict(differences=1, cls=K.CLS_BOTH, exclude_self=False,
+              tile_m=128, tile_n=128)
+    counts = K.count_tiles(a, b, K.upload_worklist(work, "cpu"),
+                           **kw).numpy()
+    work, counts = work[counts > 0], counts[counts > 0].astype(np.int64)
+    assert len(work) > 1
+    if short == "a_tile":
+        counts[0] -= 1
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum()) - (short == "total")
+    with pytest.raises(RuntimeError, match="do not fill its slots"):
+        K.extract_tiles(a, b, K.upload_worklist(work, "cpu"),
+                        offsets=torch.from_numpy(offsets), total=total,
+                        **kw)
+    with pytest.raises(ValueError, match="offsets"):
+        K.extract_tiles(a, b, K.upload_worklist(work, "cpu"),
+                        offsets=torch.from_numpy(offsets[:-1]),
+                        total=total, **kw)
+    with pytest.raises(ValueError, match="pair mode"):
+        K.extract_tiles(a, b, K.upload_worklist(work, "cpu"), k=4,
+                        offsets=torch.from_numpy(offsets), total=total,
+                        **kw)
+
+
 def test_tile_wrappers_check_inputs(dbs):
     c = _Case(dbs, 1, True, False, False, "all", "colmajor")
     ta, tb, wd, kw = c.ta, c.tb, c.work_t, c.kw
@@ -560,17 +658,15 @@ def test_route_profile_and_pair_plan():
     spec = teng.MatchSpec(1, True, False)
     assert teng.TILES_PER_DEVICE_MIN == 3_000_000
     for n1, n2 in ((1, 1), (4_000_000, 10), (1, 4_000_001)):
-        assert teng._pair_plan(_Fake(n1), _Fake(n2), spec, "cuda")[:2] == (
-            512, 2048
-        )
+        assert teng._pair_plan(_Fake(n1), _Fake(n2), spec, "cuda")[0] == 512
     plan = teng._pair_plan(_Fake(4_000_000), _Fake(10), spec, "cuda", 128)
-    assert plan == (128, 32768, 16, True, True)
+    assert plan == (128, 16, True, True)
     # the CPU keeps 128 tiles
     assert teng._pair_plan(_Fake(9_000_000), _Fake(1), spec, "cpu")[0] == 128
     # lpad rounds the longest sequence up to 8; -g and -d 2 drop the
     # key grouping and the indel rows
     assert teng._pair_plan(_Fake(5, 17), _Fake(5), teng.MatchSpec(2, True, True),
-                           "cuda")[2:] == (24, False, False)
+                           "cuda")[1:] == (24, False, False)
 
 
 def test_prefetch_joins_and_reraises(dbs, monkeypatch):

@@ -79,9 +79,12 @@ def test_one_tree_a_job_with_the_worker_inside(traced, pair):
                  "engine.count", "engine.distances", "engine.diagonal"):
         (s,) = _named(spans, name)
         assert s.parent == fp.id and s.thread == fp.thread, name
-    assert _named(spans, "kernels.extract")
-    assert len(_named(spans, "kernels.extract")) >= len(
-        _named(spans, "engine.decode"))
+    # one extract_tiles launch a class stream, one decode a device
+    extracts = _named(spans, "kernels.extract")
+    assert 1 <= len(extracts) <= 3  # the tile classes
+    (decode,) = _named(spans, "engine.decode")
+    assert {s.parent for s in extracts + [decode]} == {
+        _named(spans, "engine.extract")[0].parent} == {fp.id}
     # the main thread's laps, unchanged
     laps = [s.name for s in spans if s.thread == job.thread
             and s.parent == job.id and "." not in s.name]
@@ -110,8 +113,12 @@ def test_counts_agree_with_the_job(traced, pair):
     tiles = sum(v for k, v in wl.counts.items() if k.startswith("tiles."))
     assert cnt.counts["tiles"] == tiles > 0
     assert 0 < cnt.counts["tiles_matched"] <= tiles
-    assert sum(s.counts["words"] for s in _named(spans, "kernels.extract")) \
-        >= 1
+    extracts = _named(spans, "kernels.extract")
+    assert sum(s.counts["pairs"] for s in extracts) == written
+    assert sum(s.counts["tiles"] for s in extracts) \
+        == cnt.counts["tiles_matched"]
+    (decode,) = _named(spans, "engine.decode")
+    assert decode.counts["d2h_bytes"] == 0  # the CPU: nothing copied
     parses = _named(spans, "io.parse")
     assert [s.counts["rows"] for s in parses] == [_rows(a), _rows(b)]
     assert [s.counts["input_bytes"] for s in parses] == [
