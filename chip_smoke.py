@@ -32,8 +32,8 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
   6. holds count_tiles and extract_tiles against their plain versions
      on every tile of the full-width worklists of phases 7 to 9 (all
      three tile classes; d = 1, 2, 3; exclude_self on and off), at tile
-     512, and on a nucleotide set with lpad 48: equal counts, equal
-     record sets, and no word index repeated;
+     512, and on a nucleotide set with lpad 48: equal counts, and equal
+     pairs in each tile's slots, none repeated;
   7. drives the tile route (ops.engine.find_pairs, -d 1 -i) over the
      1M x 1M workload with 0.5 % of set 1's rows planted into a copy of
      set 2 with one residue inserted or deleted: its pairs and distances
@@ -915,8 +915,8 @@ def tile_kw(p, cls, d=None, xself=None):
 
 def matched_offsets(work, counts, dev):
     """The matched tiles of work (counts: count_tiles' host counts) and
-    extract_tiles' pair-mode arguments for them, as find_pairs makes
-    them: (worklist on dev, offsets on dev, total)."""
+    extract_tiles' slot arguments for them, as find_pairs makes them:
+    (worklist on dev, offsets on dev, total)."""
     import torch
 
     from compairr_tpu_torch.ops import kernels as K
@@ -930,10 +930,8 @@ def matched_offsets(work, counts, dev):
 def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
     """count_tiles and extract_tiles against their plain versions over
     every tile of every stream of p: (largest count difference, number
-    of records in one record set and not the other plus the kernel's
-    repeated word indices plus the pairs of the pair mode in one pair
-    set and not the other, tiles, matches).
-    ds: the distances the Hamming class is also run at."""
+    of pairs differing from the plain version's or repeated, tiles,
+    matches). ds: the distances the Hamming class is also run at."""
     import torch
 
     from compairr_tpu_torch.ops import kernels as K
@@ -948,13 +946,6 @@ def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
                 want = K.count_tiles_plain(p["a"], p["b"], wd, **kw)
                 worst = max(worst, int((got - want).abs().max()))
                 total = int(want.sum())
-                idx, bits, _ = K.extract_tiles(p["a"], p["b"], wd,
-                                               k=max(total, 1), **kw)
-                pidx, pbits = K.extract_tiles_plain(p["a"], p["b"], wd, **kw)
-                rec = (idx.astype(np.int64) << 32) | bits
-                prec = (pidx.astype(np.int64) << 32) | pbits
-                diff = len(np.setxor1d(rec, prec))
-                repeated = len(idx) - len(np.unique(idx))
                 mw, offs, n = matched_offsets(work, want.cpu().numpy(),
                                               wd.device)
                 pairs = [
@@ -970,15 +961,14 @@ def compare_tile_kernels(p, label, ds=None, xselfs=(None,)):
                 gs, ws = (x[np.lexsort(x.T[::-1])] for x in (gs, ws))
                 pdiff = (int((gs != ws).any(1).sum()) if gs.shape == ws.shape
                          else abs(len(gs) - len(ws)) + 1)
-                bad += diff + repeated + pdiff
+                bad += pdiff
                 tiles += len(work)
                 matched += total
                 print(f"  {label}: class {cls} d={kw['differences']} "
                       f"exclude_self={kw['exclude_self']}: {len(work)} "
                       f"tiles, {total} matches, equal counts "
-                      f"{torch.equal(got, want)}, {len(rec)} records, "
-                      f"{diff} differ, {repeated} repeated word indices; "
-                      f"pair mode: {n} pairs, {pdiff} differ or repeat")
+                      f"{torch.equal(got, want)}; {n} pairs, {pdiff} "
+                      f"differ or repeat")
     return worst, bad, tiles, matched
 
 
@@ -1658,7 +1648,7 @@ def tile_route_timing(a, b, spec, label):
     """Timing only, no plain version: find_pairs on the card (its wall,
     phase split, launches and pairs (i1, i2), every count set to 0 just
     before), then
-    count_tiles over each worklist stream and extract_tiles (pair mode)
+    count_tiles over each worklist stream and extract_tiles
     over each stream's nonzero tiles, once each after one warm call
     (CUDA events), with their bounds. The count's bound takes the pair
     counts of the whole run (every equal-key pair lies in a Hamming or
@@ -2332,16 +2322,16 @@ def main(argv) -> int:
              {"tile": other}, {}),
             ("nucleotides, lpad 48", (*nt_pair(20_000, 16), spec_i), {}, {}),
         ]
-        res = {"count_max_abs_err": 0, "records_differing": 0, "cases": {}}
+        res = {"count_max_abs_err": 0, "pairs_differing": 0, "cases": {}}
         for label, (a, b, spec), tkw, ckw in cases:
             tp = tile_inputs(a, b, spec, dev, **tkw)
             worst, bad, tiles, matched = compare_tile_kernels(tp, label, **ckw)
             res["count_max_abs_err"] = max(res["count_max_abs_err"], worst)
-            res["records_differing"] += bad
+            res["pairs_differing"] += bad
             res["cases"][label] = {
                 "tiles": tp["tiles"], "tile": tp["tile"], "lpad": tp["lpad"],
                 "tiles_compared": tiles, "matches": matched,
-                "count_max_abs_err": worst, "records_differing": bad,
+                "count_max_abs_err": worst, "pairs_differing": bad,
             }
             print(f"  {label}: tile {tp['tile']}, lpad {tp['lpad']}, "
                   f"{tp['tiles']} worklist tiles, {tiles} compared, "
@@ -2350,7 +2340,7 @@ def main(argv) -> int:
                 kept["main"] = tp
             if matched == 0:
                 raise AssertionError(f"{label}: no match, nothing compared")
-        if res["count_max_abs_err"] or res["records_differing"]:
+        if res["count_max_abs_err"] or res["pairs_differing"]:
             raise AssertionError(f"tile kernels differ from plain: {res}")
         return res
 
@@ -3490,10 +3480,11 @@ def main(argv) -> int:
         "library_ms": None,
     }]
     # max_abs_err: the largest count difference for count_tiles, the
-    # records in one record set and not the other for extract_tiles
+    # pairs differing from the plain version's or repeated for
+    # extract_tiles
     for kname, line, err, key in (
         ("count_tiles", 1513, kv["count_max_abs_err"], "count"),
-        ("extract_tiles", 1683, kv["records_differing"], "extract"),
+        ("extract_tiles", 1683, kv["pairs_differing"], "extract"),
     ):
         kernels.append({
             "name": kname,

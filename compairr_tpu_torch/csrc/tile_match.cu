@@ -8,16 +8,12 @@
 //   extract_tiles  replaces the extract Pallas kernel, pallas_kernels.py:1683
 //                  (_make_extract_kernel / _extract_pallas_fn :1753 /
 //                  extract_tiles_pallas :1907), with the XLA compaction
-//                  epilogue of its `run` (:1878-1902): every tile's match
-//                  mask packed 32 columns to a uint32 word, and the nonzero
-//                  words appended as (word_idx, word_bits) records, where
-//                  word_idx = tile * TM * (TN/32) + row * (TN/32) + word, the
-//                  JAX package's flat index. In pair mode (a runtime flag,
-//                  pair_a set) the same instantiations write each match as
-//                  its pair of original indices instead, tile t's into the
-//                  slots offsets[t] .. offsets[t + 1] - 1 that the caller
-//                  scanned from count_tiles' counts, so nothing is left to
-//                  decode on the host.
+//                  epilogue of its `run` (:1878-1902) and the host's decode
+//                  of its packed match words: each match is written as its
+//                  pair of original indices, tile t's into the slots
+//                  offsets[t] .. offsets[t + 1] - 1 that the caller scanned
+//                  from count_tiles' counts, so nothing is left to decode
+//                  on the host.
 //
 // Both test a pair with the function of _cached_key_match
 // (pallas_kernels.py:229-320):
@@ -72,17 +68,15 @@
 //     P other than 3 or 5 the same loop runs over runtime C and P, with
 //     the a planes read from device memory, not staged;
 //   * count_tiles adds each lane's hits and sums them across the block;
-//     extract_tiles ballots each row's word and reserves the nonzero
-//     words of a step with one atomicAdd a warp. Each (row, word) is
-//     visited once, so no word is appended twice; records come back in
-//     no fixed order. In pair mode lane 0 reserves the step's hits (the
-//     ballots' popcounts) from a cursor in shared memory, and each
-//     hitting lane writes its pairs at its rank among them, row by row:
-//     a tile's pairs fill its slots in no fixed order. A warp whose hits
-//     would pass the tile's slots writes nothing, and a block whose
-//     cursor ends other than at its slot count sets the error flag, so
-//     offsets that disagree with the kernel's own matches raise in the
-//     caller and never write out of bounds;
+//     extract_tiles ballots each row's word, lane 0 reserves the step's
+//     hits (the ballots' popcounts) from a cursor in shared memory, and
+//     each hitting lane writes its pairs at its rank among them, row by
+//     row. Each (row, word) is visited once, so no pair is written
+//     twice; a tile's pairs fill its slots in no fixed order. A warp
+//     whose hits would pass the tile's slots writes nothing, and a block
+//     whose cursor ends other than at its slot count sets the error
+//     flag, so offsets that disagree with the kernel's own matches raise
+//     in the caller and never write out of bounds;
 //   * pads: with exclude_self the pad rows of a (orig -1) are skipped,
 //     since their one possible pair, a pad's own twin in a
 //     self-comparison, is dropped anyway; without it a pad row is a run
@@ -128,14 +122,10 @@ struct Args {
   int npad_a, npad_b, tile_m, tile_n, n_chunks, n_planes, lpad;
   int differences, cls, exclude_self, key_bytes, chunk;
   int32_t* counts;  // count_tiles: [n_tiles]
-  int k;            // extract_tiles: record capacity
-  int32_t* word_idx;
-  uint32_t* word_bits;
-  int32_t* counter;
-  // extract_tiles' pair mode, on when pair_a is set: tile t's pairs go to
-  // slots offsets[t] .. offsets[t + 1] - 1 (total after the last tile) of
-  // pair_a (a original indices) and pair_b (b original indices); error
-  // is set to 1 where a tile's matches do not fill its slots exactly
+  // extract_tiles: tile t's pairs go to slots offsets[t] .. offsets[t +
+  // 1] - 1 (total after the last tile) of pair_a (a original indices)
+  // and pair_b (b original indices); error is set to 1 where a tile's
+  // matches do not fill its slots exactly
   const long long* offsets;  // [n_tiles]
   long long total;
   int32_t* pair_a;
@@ -143,9 +133,9 @@ struct Args {
   int32_t* error;
 };
 
-// A block's pair slots (pair mode): the first, their number (-1 where the
-// offsets are out of order or out of range: nothing is then written), and
-// the cursor in shared memory that the warps reserve from.
+// A block's pair slots (extract_tiles): the first, their number (-1
+// where the offsets are out of order or out of range: nothing is then
+// written), and the cursor in shared memory that the warps reserve from.
 struct Slots {
   long long base;
   int cap;
@@ -439,11 +429,10 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
         static_cast<size_t>(a0 + row0) * p.n_chunks * p.n_planes;
     a.load(p, p.a_pl + off, kIndel ? p.a_rpl + off : nullptr, nrows);
   }
-  const bool pairs = kExtract && p.pair_a != nullptr;
   int oa[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    oa[r] = p.exclude_self || pairs
+    oa[r] = p.exclude_self || kExtract
                 ? p.a_orig[a0 + row0 + min(r, nrows - 1)]
                 : 0;
   }
@@ -452,7 +441,6 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
   const int ml_lo = min(la, static_cast<int>((key - 1) & 0xFFFF));
   const int ml_hi = min(la, static_cast<int>((key + 1) & 0xFFFF));
   const bool ham = p.cls != kIndelOnly;
-  const int wpr = p.tile_n >> 5;
   const int w_end = (min(hi, c0 + cc) + 31) >> 5;
   for (int w = max(lo, c0) >> 5; w < w_end; ++w) {
     const int j = (w << 5) + lane;  // tile column; j - c0 in the chunk
@@ -477,16 +465,13 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
     }
     if constexpr (kExtract) {
       uint32_t bits[R];
-      int nz = 0;
+      int n = 0;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         bits[r] = __ballot_sync(kFull, (hm >> r) & 1u);
-        nz += bits[r] != 0;
+        n += __popc(bits[r]);
       }
-      if (nz && pairs) {
-        int n = 0;
-#pragma unroll
-        for (int r = 0; r < R; ++r) n += __popc(bits[r]);
+      if (n) {
         int pos = 0;
         if (lane == 0) pos = atomicAdd(slots.cursor, n);
         pos = __shfl_sync(kFull, pos, 0);
@@ -505,21 +490,6 @@ __device__ __forceinline__ void run_unit(const Args& p, const Stage& s,
             rank += __popc(bits[r]);
           }
         }
-      } else if (nz) {
-        int pos = 0;
-        if (lane == 0) pos = atomicAdd(p.counter, nz);
-        pos = __shfl_sync(kFull, pos, 0);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (bits[r]) {
-            if (lane == r && pos < p.k) {
-              p.word_idx[pos] =
-                  (blockIdx.x * p.tile_m + row0 + r) * wpr + w;
-              p.word_bits[pos] = bits[r];
-            }
-            ++pos;
-          }
-        }
       }
     } else {
       cnt += __popc(hm);
@@ -535,9 +505,8 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
   const int t = blockIdx.x;
   const int a0 = p.work[2 * t];
   const int b0 = p.work[2 * t + 1];
-  const bool pairs = kExtract && p.pair_a != nullptr;
   Slots slots = {0, 0, &s_total};
-  if (pairs) {
+  if constexpr (kExtract) {
     slots.base = p.offsets[t];
     const long long end = t + 1 < static_cast<int>(gridDim.x)
                               ? p.offsets[t + 1]
@@ -549,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
   // block-uniform exit, before any barrier: an invalid tile counts 0
   if (a0 < 0 || b0 < 0 || a0 >= p.npad_a || b0 >= p.npad_b) {
     if (!kExtract && threadIdx.x == 0) p.counts[t] = 0;
-    if (pairs && threadIdx.x == 0 && slots.cap != 0) *p.error = 1;
+    if (kExtract && threadIdx.x == 0 && slots.cap != 0) *p.error = 1;
     return;
   }
   const int m = min(p.tile_m, p.npad_a - a0);
@@ -651,7 +620,7 @@ __global__ void __launch_bounds__(kThreads) tile_match_kernel(const Args p) {
     if (lane == 0 && cnt) atomicAdd(&s_total, cnt);
     __syncthreads();
     if (threadIdx.x == 0) p.counts[t] = s_total;
-  } else if (pairs) {
+  } else {
     // every warp's reservations made: the cursor holds the tile's matches
     __syncthreads();
     if (threadIdx.x == 0 && s_total != slots.cap) *p.error = 1;
@@ -796,12 +765,7 @@ int count_tiles_launch(const void* a_planes, const void* a_rplanes,
   return run(p, n_tiles, false, stream);
 }
 
-// Packed match words of the worklist tiles: the nonzero words appended
-// from atomicAdd(counter, n) into word_idx (int32 [k]) and word_bits
-// (uint32 [k]) while the slot is below k. counter (int32, zeroed by the
-// caller) ends as the number of nonzero words, which may exceed k: the
-// caller checks. With pair_a set (pair mode; k, word_idx, word_bits and
-// counter are then unused) each match is written instead as its original
+// The matches of the worklist tiles, each written as its original
 // indices, a's to pair_a and b's to pair_b (int32 [total] each), tile t's
 // in the slots offsets[t] .. offsets[t + 1] - 1 (int64 [n_tiles]; total
 // after the last tile) in no fixed order; error (int32, zeroed by the
@@ -815,24 +779,19 @@ int extract_tiles_launch(const void* a_planes, const void* a_rplanes,
                          const void* work, int n_tiles, int npad_a,
                          int npad_b, int tile_m, int tile_n, int n_chunks,
                          int n_planes, int lpad, int differences, int cls,
-                         int exclude_self, int key_bytes, int k,
-                         void* word_idx, void* word_bits, void* counter,
+                         int exclude_self, int key_bytes,
                          const void* offsets, long long total, void* pair_a,
                          void* pair_b, void* error, void* stream) {
   Args p = make_args(a_planes, a_rplanes, a_key, a_orig, b_planes,
                      b_rplanes, b_key, b_orig, work, npad_a, npad_b, tile_m,
                      tile_n, n_chunks, n_planes, lpad, differences, cls,
                      exclude_self, key_bytes);
-  p.k = k;
-  p.word_idx = static_cast<int32_t*>(word_idx);
-  p.word_bits = static_cast<uint32_t*>(word_bits);
-  p.counter = static_cast<int32_t*>(counter);
   p.offsets = static_cast<const long long*>(offsets);
   p.total = total;
   p.pair_a = static_cast<int32_t*>(pair_a);
   p.pair_b = static_cast<int32_t*>(pair_b);
   p.error = static_cast<int32_t*>(error);
-  if (p.pair_a && (!p.pair_b || !p.offsets || !p.error || total < 0)) {
+  if (!p.pair_a || !p.pair_b || !p.offsets || !p.error || total < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return run(p, n_tiles, true, stream);

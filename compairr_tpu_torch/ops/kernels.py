@@ -48,7 +48,6 @@ import shutil
 import subprocess
 import threading
 from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 import torch
@@ -208,6 +207,53 @@ def residue_planes(seqs: torch.Tensor, n_planes: int) -> torch.Tensor:
     return out
 
 
+def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
+                   pad_val: int) -> torch.Tensor:
+    """Each row reversed within its length, pad residues after it
+    (pallas_kernels._seqs_chunk); row-chunked like _gathered_seqs."""
+    npad, lpad = seqs.shape
+    pos = torch.arange(lpad, device=seqs.device)[None, :]
+    out = torch.empty_like(seqs)
+    for s in range(0, npad, _DERIVE_CHUNK):
+        ln = lengths[s : s + _DERIVE_CHUNK, None]
+        idx = (ln - 1 - pos).clamp(0, lpad - 1)
+        rev = seqs[s : s + len(ln)].gather(1, idx)
+        out[s : s + len(ln)] = torch.where(
+            pos < ln, rev, torch.full_like(rev, pad_val)
+        )
+    return out
+
+
+def _sorted_rows(db, order: np.ndarray, npad: int, lpad: int,
+                 key: np.ndarray, device, indels: bool, planes: bool):
+    """The key-sorted layout both derives share, on `device`: (order,
+    key, rows). order is int64 [npad], pack_keys' permutation with the
+    all-pad sentinel row n on the pads; key is the caller's host key row
+    [npad], uploaded as it is; rows holds seqs (int8 [npad, lpad], the
+    residues gathered in that order), with indels rseqs (each row
+    reversed within its length, the key's low 16 bits clamped to lpad),
+    and with planes their residue_planes, planes and (with indels)
+    rplanes."""
+    n = db.n
+    pad_val = int(db.pad_value)
+    order_full = np.full(npad, n, dtype=np.int64)
+    order_full[:n] = order
+    o = upload(order_full, device)
+    k = upload(key, device)
+    packed = _packed_upload(db, _canon_src(n + 1), lpad, pad_val)
+    seqs = _gathered_seqs(upload(packed, device), o, lpad)
+    rows = {"seqs": seqs}
+    if indels:
+        rows["rseqs"] = _reversed_rows(seqs, (k & 0xFFFF).clamp(0, lpad),
+                                       pad_val)
+    if planes:
+        rows["planes"] = residue_planes(seqs, pad_val.bit_length())
+        if indels:
+            rows["rplanes"] = residue_planes(rows["rseqs"],
+                                             pad_val.bit_length())
+    return o, k, rows
+
+
 def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
                     sort_key: np.ndarray, device, *, indels: bool = False,
                     wide: bool = False, planes: bool = False) -> dict:
@@ -237,10 +283,7 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
     from the key's low 16 bits (clamped to lpad on pads, whose rows
     are all pad)."""
     n = db.n
-    pad_val = int(db.pad_value)
     m = _canon_src(n + 1)
-    order_full = np.full(npad, n, dtype=np.int64)
-    order_full[:n] = order
     if not wide and n and int(sort_key[:n].max()) >= 1 << 31:
         raise ValueError("a bucket key is >= 2^31: the key rows must be wide")
     dtype = np.int64 if wide else np.int32
@@ -248,28 +291,15 @@ def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
     cnt[:n] = np.asarray(db.counts, dtype=np.int64)
     key = np.full(npad, -1, dtype=dtype)
     key[:n] = sort_key[:n]
-
-    def up(x):
-        return upload(np.ascontiguousarray(x), device)
-
-    o = up(order_full)
-    k = up(key)
-    seqs = _gathered_seqs(up(_packed_upload(db, m, lpad, pad_val)), o, lpad)
-    out = {
-        "seqs": seqs,
+    o, k, rows = _sorted_rows(db, order, npad, lpad, key, device, indels,
+                              planes)
+    return {
+        **rows,
         "key64" if wide else "key32": k,
-        "rep": up(_shrink(db.rep_no, -1, m)).index_select(0, o).to(torch.int32),
-        "cnt64" if wide else "cnt": up(cnt).index_select(0, o),
+        "rep": upload(_shrink(db.rep_no, -1, m), device).index_select(
+            0, o).to(torch.int32),
+        "cnt64" if wide else "cnt": upload(cnt, device).index_select(0, o),
     }
-    if indels:
-        out["rseqs"] = _reversed_rows(seqs, (k & 0xFFFF).clamp(0, lpad),
-                                      pad_val)
-    if planes:
-        out["planes"] = residue_planes(seqs, pad_val.bit_length())
-        if indels:
-            out["rplanes"] = residue_planes(out["rseqs"],
-                                            pad_val.bit_length())
-    return out
 
 
 # the key rows are int32 while every real key of both sets is below
@@ -284,23 +314,6 @@ def wide_keys(*real_keys: np.ndarray) -> bool:
     either set is at or above 2^29. One choice for both sets of a run,
     so that the kernels always get two key rows of one type."""
     return any(len(k) and int(k.max()) >= _KEY_FUSE_MAX for k in real_keys)
-
-
-def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
-                   pad_val: int) -> torch.Tensor:
-    """Each row reversed within its length, pad residues after it
-    (pallas_kernels._seqs_chunk); row-chunked like _gathered_seqs."""
-    npad, lpad = seqs.shape
-    pos = torch.arange(lpad, device=seqs.device)[None, :]
-    out = torch.empty_like(seqs)
-    for s in range(0, npad, _DERIVE_CHUNK):
-        ln = lengths[s : s + _DERIVE_CHUNK, None]
-        idx = (ln - 1 - pos).clamp(0, lpad - 1)
-        rev = seqs[s : s + len(ln)].gather(1, idx)
-        out[s : s + len(ln)] = torch.where(
-            pos < ln, rev, torch.full_like(rev, pad_val)
-        )
-    return out
 
 
 def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
@@ -331,10 +344,6 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
     that pair through orig. The lengths of the reversal come from the
     key's low 16 bits (garbage on pads, whose rows are all pad)."""
     n = db.n
-    pad_val = int(db.pad_value)
-    m = _canon_src(n + 1)
-    order_full = np.full(npad, n, dtype=np.int64)
-    order_full[:n] = order
     if not wide and wide_keys(sort_key[:n]):
         raise ValueError("a bucket key is >= 2^29: the key rows must be wide")
     key = np.empty(npad, dtype=np.int64 if wide else np.int32)
@@ -343,28 +352,14 @@ def device_rows_raw(db, order: np.ndarray, npad: int, lpad: int,
         (_KEY64_BAND if wide else _KEY_FUSE_MAX) + 2 + pad_salt
         + 4 * np.arange(npad - n, dtype=key.dtype)
     )
-
-    def up(x):
-        return upload(np.ascontiguousarray(x), device)
-
-    o = up(order_full)
-    k = up(key)
-    seqs = _gathered_seqs(up(_packed_upload(db, m, lpad, pad_val)), o, lpad)
-    rseqs = None
-    if indels:
-        lengths = (k & 0xFFFF).clamp(0, lpad)
-        rseqs = _reversed_rows(seqs, lengths, pad_val)
-    out = {
-        "seqs": seqs,
-        "rseqs": rseqs,
+    o, k, rows = _sorted_rows(db, order, npad, lpad, key, device, indels,
+                              planes)
+    return {
+        "rseqs": None,
+        **rows,
         "key": k,
         "orig": torch.where(o >= n, -1, o).to(torch.int32),
     }
-    if planes:
-        out["planes"] = residue_planes(seqs, pad_val.bit_length())
-        if indels:
-            out["rplanes"] = residue_planes(rseqs, pad_val.bit_length())
-    return out
 
 
 # bytes upload() has copied to a card while tracing is on; engine reads
@@ -906,59 +901,31 @@ def count_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
     return out
 
 
-def _plain_words(a: dict, b: dict, work: torch.Tensor, *, differences: int,
-                 cls: int, exclude_self: bool, tile_m: int, tile_n: int):
-    """The nonzero packed match words of the tiles, (word_idx, word_bits)
-    int64 tensors in ascending word_idx."""
-    lpad = a["seqs"].shape[1]
-    wpr = tile_n // 32
-    shifts = torch.arange(32, dtype=torch.int64, device=work.device)
-    idx_parts, bit_parts = [], []
-    for s, w in _plain_batches(work, tile_m, tile_n, lpad):
-        hit = _match_tiles_plain(
-            a, b, w, differences=differences, cls=cls,
-            exclude_self=exclude_self, tile_m=tile_m, tile_n=tile_n,
-        )
-        words = (hit.view(len(w), tile_m, wpr, 32).long() << shifts).sum(-1)
-        flat = words.reshape(-1)
-        nz = flat.nonzero().squeeze(1)
-        idx_parts.append(nz + s * tile_m * wpr)
-        bit_parts.append(flat[nz])
-    if not idx_parts:
-        empty = torch.zeros(0, dtype=torch.int64, device=work.device)
-        return empty, empty
-    return torch.cat(idx_parts), torch.cat(bit_parts)
-
-
 _SLOTS_MISMATCH = "extract_tiles: a tile's matches do not fill its slots"
 
 
 def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
                         differences: int, cls: int, exclude_self: bool,
-                        tile_m: int, tile_n: int,
-                        offsets: Optional[torch.Tensor] = None,
-                        total: Optional[int] = None):
-    """Plain PyTorch version of the extract_tiles kernel: the nonzero
-    packed match words of the tiles as host arrays (word_idx int32,
-    word_bits uint32), in ascending word_idx. With offsets and total
-    (pair mode) the words decoded instead: (a original indices, b
-    original indices), int32 [total] tensors, tile t's matches in slots
-    offsets[t] .. offsets[t + 1] - 1 (total after the last tile), in
-    row and column order; raises where a tile's matches do not fill
-    its slots."""
-    kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
-              tile_m=tile_m, tile_n=tile_n)
-    idx, bits = _plain_words(a, b, work, **kw)
-    if offsets is None:
-        return (idx.cpu().numpy().astype(np.int32),
-                bits.cpu().numpy().astype(np.uint32))
-    wpr = tile_n // 32
-    shifts = torch.arange(32, dtype=torch.int64, device=work.device)
-    word, bit = ((bits[:, None] >> shifts) & 1).nonzero(as_tuple=True)
-    w_idx = idx[word]
-    t = w_idx // (tile_m * wpr)
-    ra = work[t, 0].long() + (w_idx // wpr) % tile_m
-    cb = work[t, 1].long() + (w_idx % wpr) * 32 + bit
+                        tile_m: int, tile_n: int, offsets: torch.Tensor,
+                        total: int):
+    """Plain PyTorch version of the extract_tiles kernel: (a original
+    indices, b original indices), int32 [total] tensors, tile t's
+    matches in slots offsets[t] .. offsets[t + 1] - 1 (total after the
+    last tile), in row and column order; raises where a tile's matches
+    do not fill its slots."""
+    lpad = a["seqs"].shape[1]
+    # (tile, a row, b column) of every match: tile by tile, each tile's
+    # matches in row and column order
+    parts = [torch.zeros((3, 0), dtype=torch.int64, device=work.device)]
+    for s, w in _plain_batches(work, tile_m, tile_n, lpad):
+        hit = _match_tiles_plain(
+            a, b, w, differences=differences, cls=cls,
+            exclude_self=exclude_self, tile_m=tile_m, tile_n=tile_n,
+        )
+        wt, r, c = hit.nonzero(as_tuple=True)
+        parts.append(torch.stack([wt + s, w[wt, 0].long() + r,
+                                  w[wt, 1].long() + c]))
+    t, ra, cb = torch.cat(parts, 1)
     n_t = torch.bincount(t, minlength=len(work))
     ends = torch.cat([offsets[1:], offsets.new_tensor([total])])
     if len(work) == 0:
@@ -966,7 +933,6 @@ def extract_tiles_plain(a: dict, b: dict, work: torch.Tensor, *,
             raise RuntimeError(_SLOTS_MISMATCH)
     elif offsets[0] < 0 or not torch.equal(ends - offsets, n_t):
         raise RuntimeError(_SLOTS_MISMATCH)
-    # the words come tile by tile: each tile's matches are a run of them
     first = torch.cumsum(n_t, 0) - n_t
     slot = offsets[t] + torch.arange(len(t), device=work.device) - first[t]
     out = torch.empty((2, total), dtype=torch.int32, device=work.device)
@@ -1132,97 +1098,39 @@ def _check_offsets(offsets: torch.Tensor, total, work: torch.Tensor,
 
 def extract_tiles(a: dict, b: dict, work: torch.Tensor, *, differences: int,
                   cls: int, exclude_self: bool, tile_m: int, tile_n: int,
-                  k: Optional[int] = None,
-                  offsets: Optional[torch.Tensor] = None,
-                  total: Optional[int] = None):
-    """The matches of the worklist tiles, in one of two modes. The rows
-    are count_tiles'.
+                  offsets: torch.Tensor, total: int):
+    """Every match of the worklist tiles as its pair of original
+    indices: (i1, i2) int32 [total] tensors on the rows' device, with no
+    copy to the host. The rows are count_tiles'. offsets (int64 [T], on
+    the device) gives each tile's first slot: tile t's matches fill
+    slots offsets[t] .. offsets[t + 1] - 1, and the last tile's end at
+    total, so offsets is the exclusive prefix sum of count_tiles' counts
+    and total their sum. Raises where a tile's matches do not fill its
+    slots (one flag read back a call).
 
-    Word mode (k): the nonzero packed match words, copied to the host:
-    (word_idx int32[count], word_bits uint32[count], count). Bit i of a
-    word is column 32*word + i of its row; word_idx = tile * tile_m *
-    (tile_n/32) + row * (tile_n/32) + word, the JAX package's flat
-    index. k is the capacity of the record buffer; raises when the
-    tiles hold more than k nonzero words.
-
-    Pair mode (offsets, total): every match as its pair of original
-    indices, (i1, i2) int32 [total] tensors on the rows' device, with
-    no copy to the host. offsets (int64 [T], on the device) gives each
-    tile's first slot: tile t's matches fill slots offsets[t] ..
-    offsets[t + 1] - 1, and the last tile's end at total, so offsets is
-    the exclusive prefix sum of count_tiles' counts and total their
-    sum. Raises where a tile's matches do not fill its slots (one flag
-    read back a call).
-
-    CUDA tensors launch csrc/tile_match.cu, whose records (and pairs
-    within a tile) come in no fixed order; CPU tensors take
-    extract_tiles_plain (ascending word_idx)."""
+    CUDA tensors launch csrc/tile_match.cu, whose pairs within a tile
+    come in no fixed order; CPU tensors take extract_tiles_plain (row
+    and column order)."""
     dev = _check_tiles(a, b, work, cls, tile_m, tile_n)
-    kw = dict(differences=differences, cls=cls, exclude_self=exclude_self,
-              tile_m=tile_m, tile_n=tile_n)
-    if (offsets is None) == (k is None) or (offsets is None) != (total is None):
-        raise ValueError("extract_tiles takes k (word mode) or offsets and "
-                         "total (pair mode)")
-    if offsets is not None:
-        _check_offsets(offsets, total, work, dev)
-        if dev.type == "cpu":
-            return extract_tiles_plain(a, b, work, offsets=offsets,
-                                       total=total, **kw)
-        return _extract_pairs_cuda(a, b, work, offsets, total, dev, kw)
-    if work.shape[0] * tile_m * (tile_n // 32) >= 1 << 31:
-        raise ValueError("extract_tiles: word indices would overflow int32")
+    _check_offsets(offsets, total, work, dev)
     if dev.type == "cpu":
-        idx, bits = extract_tiles_plain(a, b, work, **kw)
-        count = len(idx)
-    else:
-        # one buffer: [counter, word_idx[k], word_bits[k]]
-        buf = torch.empty(1 + 2 * k, dtype=torch.int32, device=dev)
-        buf[0] = 0
-        if work.shape[0]:
-            lib = _tile_library(a, cls, tile_m, tile_n)
-            with torch.cuda.device(dev):
-                err = lib.extract_tiles_launch(
-                    *_tile_args(a, b, work, cls, tile_m, tile_n,
-                                differences, exclude_self),
-                    k, buf[1:].data_ptr(), buf[1 + k :].data_ptr(),
-                    buf.data_ptr(), None, 0, None, None, None,
-                    torch.cuda.current_stream(dev).cuda_stream,
-                )
-            _raise_on(lib, "extract_tiles", err)
-            _count_launch("extract_tiles")
-        host = buf.cpu().numpy()
-        trace.count("d2h_bytes", host.nbytes)
-        count = int(host[0])
-        n = min(count, k)
-        idx = host[1 : 1 + n].copy()
-        bits = host[1 + k : 1 + k + n].view(np.uint32).copy()
-    if count > k:
-        raise RuntimeError(
-            f"extract_tiles: {count} nonzero words exceed the record "
-            f"buffer of {k}"
+        return extract_tiles_plain(
+            a, b, work, differences=differences, cls=cls,
+            exclude_self=exclude_self, tile_m=tile_m, tile_n=tile_n,
+            offsets=offsets, total=total,
         )
-    return idx, bits, count
-
-
-def _extract_pairs_cuda(a: dict, b: dict, work: torch.Tensor,
-                        offsets: torch.Tensor, total: int, dev, kw: dict):
-    """extract_tiles' pair mode on the card: one launch, then the error
-    flag read back."""
-    # one buffer: [a indices (total), b indices (total), error flag]; at
-    # least one slot each, since a null pair_a means word mode
-    slots = max(total, 1)
-    buf = torch.empty(2 * slots + 1, dtype=torch.int32, device=dev)
-    flag = buf[2 * slots:]
+    # one buffer: [a indices (total), b indices (total), error flag]
+    buf = torch.empty(2 * total + 1, dtype=torch.int32, device=dev)
+    flag = buf[2 * total:]
     flag.zero_()
     if work.shape[0]:
-        lib = _tile_library(a, kw["cls"], kw["tile_m"], kw["tile_n"])
+        lib = _tile_library(a, cls, tile_m, tile_n)
         with torch.cuda.device(dev):
             err = lib.extract_tiles_launch(
-                *_tile_args(a, b, work, kw["cls"], kw["tile_m"],
-                            kw["tile_n"], kw["differences"],
-                            kw["exclude_self"]),
-                0, None, None, None, offsets.data_ptr(), total,
-                buf.data_ptr(), buf[slots:].data_ptr(), flag.data_ptr(),
+                *_tile_args(a, b, work, cls, tile_m, tile_n, differences,
+                            exclude_self),
+                offsets.data_ptr(), total, buf.data_ptr(),
+                buf[total:].data_ptr(), flag.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _raise_on(lib, "extract_tiles", err)
@@ -1233,7 +1141,7 @@ def _extract_pairs_cuda(a: dict, b: dict, work: torch.Tensor,
     trace.count("d2h_bytes", flag.element_size())
     if bad:
         raise RuntimeError(_SLOTS_MISMATCH)
-    return buf[:total], buf[slots : slots + total]
+    return buf[:total], buf[total : 2 * total]
 
 
 # --------------------------------------------------------------------
@@ -1992,7 +1900,7 @@ _SIGNATURES = {
     },
     "tile_match": {
         "count_tiles_launch": ([_P] * 9 + [_I] * 12 + [_P, _P], _I),
-        "extract_tiles_launch": ([_P] * 9 + [_I] * 13 + [_P] * 4 + [_L]
+        "extract_tiles_launch": ([_P] * 9 + [_I] * 12 + [_P, _L]
                                  + [_P] * 4, _I),
         "tile_match_smem_bytes": ([_I] * 5, _I),
         "tile_match_error_string": ([_I], ctypes.c_char_p),

@@ -234,7 +234,7 @@ def _tile_cases(d1, d2, dev, tile, self_cmp, by_vjl=True):
 
 
 def _check_pairs_equal_plain(a, b, work, counts, kw, dev):
-    """extract_tiles' pair mode on the matched tiles of work (counts:
+    """extract_tiles on the matched tiles of work (counts:
     count_tiles' int32 host counts) against its plain version: each
     tile's slots, from the exclusive prefix sum of the counts, hold the
     same pairs (in any order within the tile). Returns the pairs."""
@@ -263,7 +263,6 @@ def _check_pairs_equal_plain(a, b, work, counts, kw, dev):
 
 
 def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
-    import numpy as np
     import torch
 
     from compairr_tpu_torch.ops import kernels as K
@@ -280,19 +279,11 @@ def _check_tiles_equal_plain(a, b, streams, dev, tile, xself, ds=(1,)):
             torch.cuda.synchronize()
             assert torch.equal(got, want), (cls, d, tile)
             total = int(want.sum())
-            idx, bits, count = K.extract_tiles(a, b, wd, k=max(total, 1),
-                                               **kw)
-            pidx, pbits = K.extract_tiles_plain(a, b, wd, **kw)
-            assert len(np.unique(idx)) == len(idx), "a word came twice"
-            o = np.argsort(idx)
-            np.testing.assert_array_equal(idx[o], pidx)
-            np.testing.assert_array_equal(bits[o], pbits)
-            assert count == len(pidx)
             assert _check_pairs_equal_plain(
                 a, b, work, want.cpu().numpy(), kw, dev) == total
             assert K.LAUNCHES["count_tiles"] == before["count_tiles"] + 1
             assert K.LAUNCHES["extract_tiles"] == (
-                before["extract_tiles"] + 1 + int(total > 0))
+                before["extract_tiles"] + int(total > 0))
             matched += total
     assert matched > 0
 
@@ -366,7 +357,7 @@ def test_tile_kernels_single_key_tiles(cuda, tile):
 
 @pytest.mark.parametrize("lpad", [24, 40])
 def test_extract_tiles_pair_mode_equals_plain(cuda, lpad):
-    """extract_tiles' pair mode, one launch a class, against its plain
+    """extract_tiles, one launch a class, against its plain
     version at one plane chunk (lpad 24) and two (lpad 40, amino acids)
     at tiles 128 and 512 (the route's), every class, two sets and a
     self-comparison; offsets one slot short raise, and the card works
@@ -426,6 +417,8 @@ def test_tile_kernels_require_planes(cuda):
     wd = K.upload_worklist(work, cuda)
     kw = dict(differences=1, cls=cls, exclude_self=False, tile_m=128,
               tile_n=128)
+    offsets = torch.zeros(len(work), dtype=torch.int64, device=cuda)
+
     def bare(side):
         return {k: v for k, v in side.items()
                 if k not in ("planes", "rplanes")}
@@ -435,7 +428,8 @@ def test_tile_kernels_require_planes(cuda):
         with pytest.raises(ValueError, match="planes"):
             K.count_tiles(strip(a), b, wd, **kw)
         with pytest.raises(ValueError, match="planes"):
-            K.extract_tiles(a, strip(b), wd, k=1 << 12, **kw)
+            K.extract_tiles(a, strip(b), wd, offsets=offsets, total=0,
+                            **kw)
     torch.cuda.synchronize()
     assert K.LAUNCHES == before
 

@@ -10,8 +10,8 @@ CPU:
     popcounts; first mismatch, prefix and suffix from the lowest set bit
     of the first nonzero chunk mask) against the byte criterion of
     count_tiles_plain, mask for mask, on random and planted rows;
-  * asking for planes changes no count and no record against the JAX
-    package's count and extract kernels (interpret mode);
+  * asking for planes changes no count and no pair against the JAX
+    package's count kernel (interpret mode) and extraction;
   * where the engine asks for planes, and the wrappers' checks of them.
 
 Every quantity is an integer, so equality is exact."""
@@ -26,7 +26,7 @@ from compairr_tpu_torch.core.db import GeneTables, SeqDB
 from compairr_tpu_torch.ops import engine as teng
 from compairr_tpu_torch.ops import kernels as K
 
-from test_torch_tiles import _Case, _assert_records
+from test_torch_tiles import _Case, _assert_pairs, _extract_pairs
 from torch_port_data import read_pair, write_pair
 
 LPADS = [8, 24, 32, 40, 96, 136]  # C = 1, 1, 1, 2, 3, 5
@@ -272,9 +272,7 @@ def test_planes_change_no_count_or_record_against_pallas(
     np.testing.assert_array_equal(got.numpy(), want)
     masks = _plane_match_tiles(c.ta, c.tb, c.work_t, **c.kw)
     np.testing.assert_array_equal(masks.sum((1, 2)).numpy(), want)
-    k = 1 << 15
-    idx, bits, count = K.extract_tiles(c.ta, c.tb, c.work_t, k=k, **c.kw)
-    _assert_records(c, k, idx, bits, count)
+    _assert_pairs(c, _extract_pairs(c.ta, c.tb, c.work, c.kw))
 
 
 # ---- the engine and the wrappers ---------------------------------------
@@ -299,7 +297,8 @@ def test_tile_wrappers_check_planes(monkeypatch, dbs):
         K.count_tiles(ta, dict(tb, planes=tb["planes"][:, :, :3]), wd, **kw)
     with pytest.raises(ValueError, match="planes"):
         K.extract_tiles(dict(ta, planes=ta["planes"].long()), tb, wd,
-                        k=1 << 12, **kw)
+                        offsets=torch.zeros(len(wd), dtype=torch.int64),
+                        total=0, **kw)
     three = {k: K.residue_planes(tb[s], 3)
              for k, s in (("planes", "seqs"), ("rplanes", "rseqs"))}
     with pytest.raises(ValueError, match="differ in number"):

@@ -4,9 +4,9 @@
     pallas_kernels.device_rows_raw: residue rows, reversed rows, the
     key row with its salted pad band, original indices;
   * count_tiles_plain and extract_tiles_plain (the plain versions of
-    the port's CUDA kernels) against count_tiles_pallas and
-    extract_tiles_pallas in interpret mode, tile by tile and record by
-    record;
+    the port's CUDA kernels) against count_tiles_pallas and the JAX
+    package's extraction, tile by tile and pair by pair (its packed
+    match words decoded bit by bit);
   * engine.find_pairs(device="cpu") against the JAX package's
     find_pairs and a brute-force oracle: pair sets and distances.
 
@@ -216,28 +216,24 @@ class _Case:
         return (np.asarray(idx)[:n],
                 np.asarray(vals)[:n].astype(np.uint32), n)
 
-    def extract_xla(self, k):
-        """The JAX package's XLA extraction (its CPU route: the match
-        mask of pack_set rows, packed with integer shifts)."""
-        import jax.numpy as jnp
 
-        lpad = self.ja["seqs"].shape[1]
-        rows = [
-            jeng.pack_set(db, lpad, self.tile, True, need_rseqs=True)
-            for db in self.jdbs
-        ]
-        args = [
-            (p.seqs, p.rseqs, p.lengths, p.v, p.j, p.orig) for p in rows
-        ]
-        spec = jeng.MatchSpec(self.d, self.indels, False, self.xself)
-        fn = jeng._extract_fn(
-            spec, self.tile, self.tile, len(self.work), k,
-            indels_ov=self.indels, indel_only=self.indel_only,
-        )
-        idx, vals, n = fn(*args[0], *args[1], jnp.asarray(self.work))
-        n = int(n)
-        return (np.asarray(idx)[:n],
-                np.asarray(vals)[:n].astype(np.uint32), n)
+def _xla_words(jdbs, lpad, tile, work, d, indels, indel_only, xself, k):
+    """The JAX package's XLA extraction (its CPU route: the match mask
+    of pack_set rows, packed with integer shifts) over the tiles of
+    work: (word_idx, word_bits, count, original indices of a's rows and
+    of b's)."""
+    import jax.numpy as jnp
+
+    rows = [jeng.pack_set(db, lpad, tile, True, need_rseqs=True)
+            for db in jdbs]
+    args = [(p.seqs, p.rseqs, p.lengths, p.v, p.j, p.orig) for p in rows]
+    spec = jeng.MatchSpec(d, indels, False, xself)
+    fn = jeng._extract_fn(spec, tile, tile, len(work), k, indels_ov=indels,
+                          indel_only=indel_only)
+    idx, vals, n = fn(*args[0], *args[1], jnp.asarray(work))
+    n = int(n)
+    return (np.asarray(idx)[:n], np.asarray(vals)[:n].astype(np.uint32), n,
+            rows[0].orig, rows[1].orig)
 
 
 # bits 15 and 31 of a word: the Pallas extract kernel packs words with
@@ -247,20 +243,62 @@ class _Case:
 _INEXACT_BITS = np.uint32((1 << 15) | (1 << 31))
 
 
-def _assert_records(c, k, idx, bits, count):
-    """The port's records (ascending) against the JAX package's: equal
-    to its XLA extraction record for record, and to its Pallas kernel
-    (interpret mode) in every word index and in every word whose bits
-    15 and 31 are clear (see _INEXACT_BITS)."""
-    xidx, xvals, xn = c.extract_xla(k)
-    assert count == xn > 0
-    np.testing.assert_array_equal(idx, xidx)
-    np.testing.assert_array_equal(bits, xvals)
+def _decode_words(idx, bits, work, a_orig, b_orig, tile):
+    """Packed match words decoded bit by bit into their pairs of
+    original indices: {tile: sorted [(a orig, b orig)]}."""
+    wpr = tile // 32
+    tiles: dict = {}
+    for i, v in zip(idx.tolist(), bits.tolist()):
+        t, rest = divmod(i, tile * wpr)
+        row, word = divmod(rest, wpr)
+        for bit in range(32):
+            if v >> bit & 1:
+                ra = int(work[t, 0]) + row
+                cb = int(work[t, 1]) + 32 * word + bit
+                tiles.setdefault(t, []).append(
+                    (int(a_orig[ra]), int(b_orig[cb])))
+    return {t: sorted(p) for t, p in tiles.items()}
+
+
+def _extract_pairs(a, b, work, kw):
+    """extract_tiles as find_pairs calls it: over the tiles of work (a
+    host [T, 2] worklist) with matches, each at the slots that the
+    exclusive prefix sum of count_tiles' counts gives it. Returns
+    {tile of work: sorted [(a orig, b orig)] of its slots}."""
+    counts = K.count_tiles(a, b, K.upload_worklist(work, "cpu"),
+                           **kw).numpy().astype(np.int64)
+    tiles = np.flatnonzero(counts)
+    counts = counts[tiles]
+    offsets = np.cumsum(counts) - counts
+    total = int(counts.sum())
+    i1, i2 = K.extract_tiles(a, b, K.upload_worklist(work[tiles], "cpu"),
+                             offsets=torch.from_numpy(offsets),
+                             total=total, **kw)
+    assert i1.dtype == i2.dtype == torch.int32
+    assert i1.shape == i2.shape == (total,)
+    return {t: sorted(zip(i1[lo:lo + n].tolist(), i2[lo:lo + n].tolist()))
+            for t, lo, n in zip(tiles.tolist(), offsets.tolist(),
+                                counts.tolist())}
+
+
+def _assert_pairs(c, pairs):
+    """The port's pairs, tile by tile, against the JAX package's: equal
+    to its XLA extraction's records decoded bit by bit, whose word
+    indices its Pallas kernel (interpret mode) gives too, and whose
+    words it gives wherever their bits 15 and 31 are clear (see
+    _INEXACT_BITS)."""
+    k = 1 << 15
+    xidx, xvals, xn, a_orig, b_orig = _xla_words(
+        c.jdbs, c.ja["seqs"].shape[1], c.tile, c.work, c.d, c.indels,
+        c.indel_only, c.xself, k)
+    assert xn > 0
+    assert pairs == _decode_words(xidx, xvals, c.work, a_orig, b_orig,
+                                  c.tile)
     pidx, pvals, pn = c.extract_pallas(k)
-    assert pn == count
-    np.testing.assert_array_equal(idx, pidx)
-    exact = (bits & _INEXACT_BITS) == 0
-    np.testing.assert_array_equal(bits[exact], pvals[exact])
+    assert pn == xn
+    np.testing.assert_array_equal(pidx, xidx)
+    exact = (xvals & _INEXACT_BITS) == 0
+    np.testing.assert_array_equal(pvals[exact], xvals[exact])
 
 
 @pytest.mark.parametrize("d,indels,xself,self_cmp,stream", [
@@ -272,70 +310,58 @@ def _assert_records(c, k, idx, bits, count):
 def test_extract_tiles_plain_matches_pallas(dbs, d, indels, xself,
                                             self_cmp, stream):
     c = _Case(dbs, d, indels, xself, self_cmp, stream, "colmajor")
-    k = 1 << 15
-    idx, bits, count = K.extract_tiles(c.ta, c.tb, c.work_t, k=k, **c.kw)
-    assert idx.dtype == np.int32 and bits.dtype == np.uint32
-    order = np.argsort(idx)  # records may come in any order
-    idx, bits = idx[order], bits[order]
-    _assert_records(c, k, idx, bits, count)
-    # the words hold exactly the tiles' counted matches
-    counts = K.count_tiles_plain(c.ta, c.tb, c.work_t, **c.kw)
-    assert int(counts.sum()) == sum(bin(int(v)).count("1") for v in bits)
+    _assert_pairs(c, _extract_pairs(c.ta, c.tb, c.work, c.kw))
 
 
 @pytest.mark.parametrize("indels", [False, True])
 def test_kernels_big_keys_match_pallas_legacy_path(dbs, indels):
     """Keys >= 2^29: JAX's len/v/j mask path against the port's int64
-    key row, for counts and records."""
+    key row, for counts and pairs."""
     c = _Case(dbs, 1, indels, False, False, "all", "colmajor", big=True)
     assert c.ta["key"].dtype == torch.int64
     np.testing.assert_array_equal(
         K.count_tiles(c.ta, c.tb, c.work_t, **c.kw).numpy(),
         c.count_pallas(),
     )
-    idx, bits, count = K.extract_tiles(c.ta, c.tb, c.work_t, k=1 << 15,
-                                       **c.kw)
-    _assert_records(c, 1 << 15, idx, bits, count)
+    _assert_pairs(c, _extract_pairs(c.ta, c.tb, c.work, c.kw))
 
 
-def test_extract_tiles_raises_over_capacity(dbs):
-    c = _Case(dbs, 2, False, False, False, "all", "colmajor")
-    with pytest.raises(RuntimeError, match="exceed the record buffer"):
-        K.extract_tiles(c.ta, c.tb, c.work_t, k=4, **c.kw)
+# ---- extract_tiles' slots ---------------------------------------------
 
 
-# ---- extract_tiles' pair mode ----------------------------------------
+def _jax_db(db):
+    """The JAX package's SeqDB of a port SeqDB's rows."""
+    from compairr_tpu.core.db import GeneTables, SeqDB
 
-
-def _decoded_words(a, b, work, kw):
-    """The pairs of original indices of extract_tiles_plain's words,
-    decoded bit by bit: {tile: sorted [(a orig, b orig)]}."""
-    idx, bits = K.extract_tiles_plain(a, b, work, **kw)
-    wpr = kw["tile_n"] // 32
-    tiles: dict = {}
-    for i, v in zip(idx.tolist(), bits.tolist()):
-        t, rest = divmod(i, kw["tile_m"] * wpr)
-        row, word = divmod(rest, wpr)
-        for bit in range(32):
-            if v >> bit & 1:
-                ra = int(work[t, 0]) + row
-                cb = int(work[t, 1]) + 32 * word + bit
-                tiles.setdefault(t, []).append(
-                    (int(a["orig"][ra]), int(b["orig"][cb])))
-    return {t: sorted(p) for t, p in tiles.items()}
+    genes = GeneTables()
+    for name in db.genes.v_names:
+        genes.intern_v(name)
+    for name in db.genes.j_names:
+        genes.intern_j(name)
+    return SeqDB(
+        nucleotides=db.nucleotides, seqs=db.seqs, lengths=db.lengths,
+        counts=db.counts, rep_no=db.rep_no, v_no=db.v_no, j_no=db.j_no,
+        sequence_ids=db.sequence_ids, keep=db.keep,
+        repertoire_ids=db.repertoire_ids, genes=genes,
+        residues_count=db.residues_count,
+        total_dup_count=db.total_dup_count, shortest=db.shortest,
+        longest=db.longest,
+    )
 
 
 def _pair_inputs(lpad, self_cmp, cls):
-    """(rows a, rows b, matched worklist tiles of class cls, their
-    counts) of test_torch_cuda's planted sets at lpad (24: one plane
-    chunk of amino acids; 40: two), at 128-row tiles."""
-    from test_torch_cuda import _planted_pair, _tile_cases
+    """(rows a, rows b, worklist tiles of class cls, the JAX package's
+    SeqDBs of a and b) of test_torch_cuda's planted sets at lpad (24:
+    one plane chunk of amino acids; 40: two), at 128-row tiles."""
+    from test_torch_cuda import _concat, _planted_pair, _tile_cases
 
     d1, d2 = _planted_pair(lpad, nt=False)
     a, b, streams = _tile_cases(d1, d2, torch.device("cpu"), 128, self_cmp)
     assert a["seqs"].shape[1] == lpad
     work = next(w for w, c in streams if c == cls)
-    return a, b, work
+    jdbs = ((_jax_db(_concat(d1, d2)),) * 2 if self_cmp
+            else (_jax_db(d1), _jax_db(d2)))
+    return a, b, work, jdbs
 
 
 @pytest.mark.parametrize("cls", [K.CLS_HAMMING, K.CLS_BOTH,
@@ -345,49 +371,41 @@ def _pair_inputs(lpad, self_cmp, cls):
 @pytest.mark.parametrize("lpad", [24, 40])
 def test_extract_tiles_pairs_match_decoded_words(lpad, self_cmp, xself,
                                                  cls):
-    """Pair mode: each matched tile's pairs of original indices fill
-    exactly the slots that the exclusive prefix sum of count_tiles'
-    counts gives it, and are the pairs of the word mode's records
-    decoded bit by bit."""
-    a, b, work = _pair_inputs(lpad, self_cmp, cls)
+    """Each matched tile's pairs of original indices fill exactly the
+    slots that the exclusive prefix sum of count_tiles' counts gives it,
+    and are the pairs of the JAX package's extraction decoded bit by
+    bit."""
+    a, b, work, jdbs = _pair_inputs(lpad, self_cmp, cls)
     kw = dict(differences=1, cls=cls, exclude_self=xself, tile_m=128,
               tile_n=128)
-    wd = K.upload_worklist(work, "cpu")
-    counts = K.count_tiles(a, b, wd, **kw).numpy()
-    nz = counts > 0
-    assert nz.any()
-    work, counts = work[nz], counts[nz].astype(np.int64)
-    wd = K.upload_worklist(work, "cpu")
-    offsets = np.cumsum(counts) - counts
-    total = int(counts.sum())
-    i1, i2 = K.extract_tiles(a, b, wd, offsets=torch.from_numpy(offsets),
-                             total=total, **kw)
-    assert i1.dtype == i2.dtype == torch.int32
-    assert i1.shape == i2.shape == (total,)
-    want = _decoded_words(a, b, wd, kw)
-    assert sorted(want) == list(range(len(work)))
-    for t, (lo, n) in enumerate(zip(offsets.tolist(), counts.tolist())):
-        got = sorted(zip(i1[lo:lo + n].tolist(), i2[lo:lo + n].tolist()))
-        assert got == want[t], t
+    got = _extract_pairs(a, b, work, kw)
+    assert got
+    xidx, xvals, xn, a_orig, b_orig = _xla_words(
+        jdbs, lpad, 128, work, 1, cls != K.CLS_HAMMING,
+        cls == K.CLS_INDEL_ONLY, xself, 1 << 15)
+    assert xn > 0
+    np.testing.assert_array_equal(a_orig, a["orig"].numpy())
+    np.testing.assert_array_equal(b_orig, b["orig"].numpy())
+    assert got == _decode_words(xidx, xvals, work, a_orig, b_orig, 128)
     if xself:
-        assert not (i1 == i2).any()
+        assert all(i != j for p in got.values() for i, j in p)
 
 
-@pytest.mark.parametrize("short", ["a_tile", "total"])
-def test_extract_tiles_pairs_raise_on_short_offsets(short):
-    """Offsets one slot short (one tile's slots, or the total) raise:
-    the tiles' matches do not fill their slots."""
-    a, b, work = _pair_inputs(24, False, K.CLS_BOTH)
+@pytest.mark.parametrize("slots", ["a_tile", "total", "a_tile_over"])
+def test_extract_tiles_pairs_raise_on_short_offsets(slots):
+    """Offsets one slot short (one tile's slots, or the total) or one
+    slot over (one tile's) raise: the tiles' matches do not fill their
+    slots."""
+    a, b, work, _ = _pair_inputs(24, False, K.CLS_BOTH)
     kw = dict(differences=1, cls=K.CLS_BOTH, exclude_self=False,
               tile_m=128, tile_n=128)
     counts = K.count_tiles(a, b, K.upload_worklist(work, "cpu"),
                            **kw).numpy()
     work, counts = work[counts > 0], counts[counts > 0].astype(np.int64)
     assert len(work) > 1
-    if short == "a_tile":
-        counts[0] -= 1
+    counts[0] += {"a_tile": -1, "total": 0, "a_tile_over": 1}[slots]
     offsets = np.cumsum(counts) - counts
-    total = int(counts.sum()) - (short == "total")
+    total = int(counts.sum()) - (slots == "total")
     with pytest.raises(RuntimeError, match="do not fill its slots"):
         K.extract_tiles(a, b, K.upload_worklist(work, "cpu"),
                         offsets=torch.from_numpy(offsets), total=total,
@@ -396,10 +414,6 @@ def test_extract_tiles_pairs_raise_on_short_offsets(short):
         K.extract_tiles(a, b, K.upload_worklist(work, "cpu"),
                         offsets=torch.from_numpy(offsets[:-1]),
                         total=total, **kw)
-    with pytest.raises(ValueError, match="pair mode"):
-        K.extract_tiles(a, b, K.upload_worklist(work, "cpu"), k=4,
-                        offsets=torch.from_numpy(offsets), total=total,
-                        **kw)
 
 
 def test_tile_wrappers_check_inputs(dbs):
