@@ -95,7 +95,12 @@ Builds every CUDA kernel of the port from compairr_tpu_torch/csrc, then:
      15's min run) with CUDA events, their plain versions, their bounds
      and design floors (tile_floor over dense_bound's pairs), and
      dense_matrix's wall on the same data; the indel workload's derive
-     with and without the residue planes, in turns; and both kernels
+     with and without the residue planes, in turns; the tile route's
+     derive at the benchmark cells' shapes (4,034,260 rows at lpad 24,
+     5,000,000 at lpad 40, indels and planes): its wall and launches,
+     the rows' upload, derive_rows (csrc/derive_rows.cu) a call and
+     alone, its plain version on the card and its byte bound, every
+     array equal to the plain version's; and both kernels
      under -g at 1M x 1M (dense_indel -d 1 -i at tiles 128 and 768,
      dense_general -d 2 min at 128 and 768 and ratio at 768), timing
      only, with bound, floor, and the plain version on the -g cut;
@@ -245,7 +250,7 @@ DIFFERENCES = 2
 KERNEL_CHECKSUM = 24_865_230
 CHECK_TILES = 384  # worklist tiles of phase 3
 KERNEL_SOURCES = ("dense_match", "tile_match", "dense_general",
-                  "dense_onehot")
+                  "dense_onehot", "derive_rows")
 DEVICE = "cuda"  # every device route below runs here
 # the tile route's own near-duplicates: set 1 rows planted with one
 # edit (0 substitution, 1 deletion, 2 insertion), each with its seed
@@ -287,6 +292,13 @@ AIRR_KERNELS = ("line_count_kernel", "scan_kernel", "line_starts_kernel",
                 "verify_kernel", "compact_kernel", "ids_kernel",
                 "pack_kernel", "block_sums_kernel", "scan_write_kernel",
                 "gather_kernel")
+
+# phase 17: the derive at the benchmark cells' shapes (portbench/configs):
+# (cell, rows, length mean and deviation, shortest and longest (the int8
+# rows' width), lpad)
+DERIVE_SHAPES = (("keck20", 4_034_260, 14.5, 1.8, 9, 22, 24),
+                 ("igh10", 5_000_000, 17.0, 4.0, 5, 40, 40))
+DERIVE_SEED = 3_141_592_653
 
 # 32-bit integer lane operations a second on the CUDA cores, for the
 # design floors of dense_match and the tile kernels: 132 SMs x 64 a
@@ -1934,6 +1946,113 @@ def count_spans(d1, d2, spec, n_dev):
     return sum(max(1, min(nd, sz // tpd)) for sz in sizes), sizes
 
 
+def derive_db(n, mean, std, lo, hi, seed):
+    """A set of n amino-acid rows (20 repertoires, 50 V x 13 J genes),
+    lengths N(mean, std) rounded and clipped to lo..hi, its int8 rows hi
+    wide."""
+    from dataclasses import replace
+
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.round(rng.normal(mean, std, n)), lo,
+                      hi).astype(np.int32)
+    seqs = rng.integers(0, 20, (n, hi), dtype=np.int8)
+    seqs[np.arange(hi)[None, :] >= lengths[:, None]] = 20
+    return replace(synth_arrays(n, 20, 50, 13, seed + 1), seqs=seqs,
+                   lengths=lengths, residues_count=int(lengths.sum()),
+                   shortest=int(lengths.min()), longest=int(lengths.max()))
+
+
+def derive_shape_timing(dev, card_name):
+    """The tile route's derive of one set (a self-comparison's one
+    derive: device_rows_raw with indels, planes and int32 keys, tile 512)
+    at each of DERIVE_SHAPES: the whole derive's wall (the uploads of
+    order, key and rows and the launch, synchronised) and its
+    derive_rows launches; the int8 rows' upload alone (synchronised
+    wall, 3 times); derive_rows a call (CUDA events) and its kernel alone
+    (torch.profiler); its plain version on the card (synchronised wall);
+    the byte bound (each byte read once and written once over HBM). The
+    kernel's arrays must equal the plain version's."""
+    import torch
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    peak_bw = PEAKS.get(card_name, (None, None))[1]
+    out = {}
+    for label, n, mean, std, lo, hi, lpad in DERIVE_SHAPES:
+        db = derive_db(n, mean, std, lo, hi, DERIVE_SEED)
+        order, key, npad = E.pack_keys(db, 512, True)
+        pad = int(db.pad_value)
+
+        def whole():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = K.device_rows_raw(db, order, npad, lpad, True, key, 0,
+                                     dev, wide=False, planes=True)
+            torch.cuda.synchronize()
+            return rows, time.perf_counter() - t0
+
+        whole()
+        K.reset_launches()
+        rows, wall = whole()
+        launches = K.LAUNCHES["derive_rows"]
+        host = np.ascontiguousarray(db.seqs)
+        uploads = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = K.upload(host, dev)
+            torch.cuda.synchronize()
+            uploads.append(time.perf_counter() - t0)
+        order_full = np.full(npad, n, dtype=np.int64)
+        order_full[:n] = order
+        o = K.upload(order_full, dev)
+        k = rows["key"]
+
+        def kernel():
+            return K.derive_rows(raw, o, k, lpad, pad, indels=True,
+                                 planes=True)
+
+        ms = cuda_ms(kernel, reps=10)
+        dev_ms = kernel_ms(kernel, "derive_rows_kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.derive_rows_plain(raw, o, k, lpad, pad, indels=True,
+                                   planes=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = kernel()
+        differ = sorted(x for x in want if not (torch.equal(got[x], want[x])
+                                                and torch.equal(rows[x],
+                                                                want[x])))
+        c, p = K.plane_chunks(lpad), pad.bit_length()
+        n_bytes = (n * min(hi, lpad) + npad * (o.element_size()
+                                               + k.element_size())
+                   + npad * (2 * lpad + 2 * 4 * c * p))
+        bound_ms = n_bytes / peak_bw * 1e3 if peak_bw else None
+        out[label] = {"rows": n, "npad": npad, "w": hi, "lpad": lpad,
+                      "chunks": c, "planes": p, "derive_wall_s": wall,
+                      "launches": launches, "upload_s": uploads,
+                      "upload_bytes": host.nbytes, "ms": ms,
+                      "kernel_ms": dev_ms, "plain_ms": plain_ms,
+                      "bytes": n_bytes, "bound_ms": bound_ms,
+                      "bound_by": "HBM bytes", "arrays_differ": differ}
+        print(f"  derive at {label}'s shape ({n} rows {hi} wide, {npad} "
+              f"padded, lpad {lpad}: C {c}, P {p}): device_rows_raw "
+              f"{wall:.6f} s with {launches} derive_rows launch(es); rows' "
+              f"upload ({host.nbytes} bytes) {[f'{u:.6f}' for u in uploads]}"
+              f" s; derive_rows {ms:.4f} ms a call (CUDA events), the "
+              f"kernel alone {fmt_ms(dev_ms)}; plain version on the card "
+              f"{plain_ms:.1f} ms; bound {fmt_ms(bound_ms)} ({n_bytes} "
+              f"bytes, HBM); arrays differing from the plain version: "
+              f"{differ or 0}")
+        del rows, raw, got, want, o, k
+        if differ or launches != 1:
+            raise AssertionError(f"derive at {label}'s shape: arrays "
+                                 f"differ {differ}, launches {launches}")
+    return out
+
+
 def keck20_tsv(workdir):
     """The benchmark's keck20 cohort at its configuration's size
     (portbench/gen.py, seed AIRR_SEED) written as a TSV; its path."""
@@ -2727,7 +2846,8 @@ def main(argv) -> int:
         dense_indel, both sets: device_args_raw without planes (the int8
         rows alone) and with them (planes and rplanes besides), in
         AB_ORDER twice after one warm call each: seconds, the card
-        synchronised before and after."""
+        synchronised before and after; then derive_shape_timing at the
+        benchmark cells' shapes."""
         lpad = E._round_up(int(max(a.longest, b.longest)), 8)
         packed = [E.pack_keys(x, E.TILE_M, True) for x in (a, b)]
 
@@ -2749,7 +2869,8 @@ def main(argv) -> int:
               f"indels, {a.n} + {b.n} rows): walls (s) {walls}; planes add "
               f"{np.mean(walls['planes']) - np.mean(walls['rows only']):.6f}"
               " s on average")
-        return walls
+        return {"indel_workload": walls,
+                "cells": derive_shape_timing(dev, name)}
 
     def g_join_timing(cut):
         """dense_indel and dense_general under -g at 1M x 1M rows a set

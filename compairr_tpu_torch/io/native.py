@@ -199,18 +199,6 @@ def load_library():
             ct.c_int8,
             ct.POINTER(ct.c_int8),
         ]
-    if hasattr(lib, "pack5_rows"):
-        lib.pack5_rows.restype = None
-        lib.pack5_rows.argtypes = [
-            ct.POINTER(ct.c_int8),
-            ct.c_int64,
-            ct.c_int64,
-            ct.c_int64,
-            ct.c_int64,
-            ct.c_int64,
-            ct.c_int8,
-            ct.POINTER(ct.c_int32),
-        ]
     if hasattr(lib, "group_rows"):
         lib.group_rows.restype = ct.c_int64
         lib.group_rows.argtypes = [
@@ -1009,33 +997,6 @@ def write_cluster_native(outfile, db, order, sizes, seeds, nxt) -> bool:
         ),
     )
     return rc == 0
-
-
-def pack5_rows_native(seqs, n_rows_out: int, lpad: int, nw: int,
-                      pad: int):
-    """5-bit residue packing (host half of the device upload) via
-    native/pack_group.cpp. seqs is the [n, w] int8 database; the
-    result is [n_rows_out, nw] int32 with all-pad sentinel rows past
-    n. Returns None when the native library is unavailable."""
-    if os.environ.get("COMPAIRR_NATIVE_IO") == "0":
-        return None
-    lib = load_library()
-    if lib is None or not hasattr(lib, "pack5_rows") or nw > 64:
-        return None
-    seqs = np.ascontiguousarray(seqs, dtype=np.int8)
-    n, w = seqs.shape
-    out = np.empty((n_rows_out, nw), dtype=np.int32)
-    lib.pack5_rows(
-        seqs.ctypes.data_as(ct.POINTER(ct.c_int8)),
-        n,
-        w,
-        n_rows_out,
-        lpad,
-        nw,
-        pad,
-        out.ctypes.data_as(ct.POINTER(ct.c_int32)),
-    )
-    return out
 
 
 def pack_keys_native(v_no, j_no, lengths, nj: int, by_vjl: bool):

@@ -727,9 +727,11 @@ def _sparse_inputs(db1: SeqDB, db2: SeqDB, tile: int, by_vjl: bool,
         return rows, key
 
     up0 = K.UPLOAD_BYTES
+    launches0 = K.LAUNCHES["derive_rows"]
     a = side(db1, order_a, key_a, npad_a, 0)
     b = a if db2 is db1 else side(db2, order_b, key_b, npad_b, 2)
     tm.add("upload_bytes", K.UPLOAD_BYTES - up0)
+    tm.add("derive_launches", K.LAUNCHES["derive_rows"] - launches0)
     tm.lap("rows_raw")
     tm.report(f"_sparse_inputs n={db1.n}/{db2.n}")
     return a, b

@@ -3,17 +3,18 @@
 Port of the parts of compairr_tpu/ops/pallas_kernels.py that the dense
 engine and the sparse tile route run:
 
-  * the device derive (pallas_kernels.py:2049-2493): the host packs
-    residues 6 five-bit codes to an int32 word (_pack_residues /
-    _packed_upload); the device gathers the rows into key-sorted order
-    and unpacks them (_gathered_seqs / _unpack_residues) and gathers
+  * the device derive (pallas_kernels.py:2049-2493): the parsed int8
+    rows go up as they are, and derive_rows (the wrapper of
+    csrc/derive_rows.cu, which replaces the XLA device code of the JAX
+    package's device_rows_raw and device_args_raw, and its plain
+    version derive_rows_plain) gathers them into key-sorted order,
+    reverses them within their lengths and builds for every CUDA kernel
+    but dense_onehot the residue bit planes (residue_planes: one int32
+    word per 32 positions and residue bit); around it, torch ops gather
     the repertoire and count rows (device_args_raw, the dense engine's)
-    or reverses the rows within their lengths and derives the key and
-    original-index rows (device_rows_raw, the tile route's), and for
-    every CUDA kernel but dense_onehot the residue bit planes
-    (residue_planes: one int32 word per 32 positions and residue bit).
-    Torch ops, not kernels. No one-hot rows are derived: the kernels
-    read residues or planes.
+    or derive the original-index rows (device_rows_raw, the tile
+    route's). No one-hot rows are derived: the kernels read residues or
+    planes.
   * the kernel choice (_dense_kernel_kind, pallas_kernels.py:1424):
     the JAX package's v3 / v2 / v2c / v1 ladder without the TPU's
     memory gates.
@@ -71,9 +72,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # kernel and nowhere else (a run reads them to prove its path)
 LAUNCHES = {"dense_match": 0, "dense_onehot": 0, "dense_indel": 0,
             "dense_general": 0, "count_tiles": 0, "extract_tiles": 0,
-            "airr_lines": 0, "airr_rows": 0, "airr_verify": 0,
-            "airr_compact": 0, "airr_ids": 0, "airr_pack": 0,
-            "airr_gather": 0}
+            "derive_rows": 0, "airr_lines": 0, "airr_rows": 0,
+            "airr_verify": 0, "airr_compact": 0, "airr_ids": 0,
+            "airr_pack": 0, "airr_gather": 0}
 _LAUNCHES_LOCK = threading.Lock()  # a prefetch worker launches too
 
 
@@ -92,62 +93,7 @@ def _count_launch(name: str) -> None:
 # device derive
 # --------------------------------------------------------------------
 
-RES_PER_WORD = 6  # 5-bit residues per int32 word (values < 32)
-_DERIVE_CHUNK = 1 << 21  # rows per derive step: bounds int32 temporaries
-
-
-def _pack_residues(seqs_i8: np.ndarray) -> np.ndarray:
-    """Host half of the residue compression: 6 five-bit residues per
-    int32 word, ~4x fewer bytes to upload than int8 rows at lmax 24.
-    All residue codes (aa 0..20 incl. pad, nt 0..4) fit 5 bits."""
-    n, l = seqs_i8.shape
-    nw = -(-l // RES_PER_WORD)
-    grown = np.zeros((n, nw * RES_PER_WORD), dtype=np.uint32)
-    grown[:, :l] = seqs_i8.astype(np.uint32)
-    g = grown.reshape(n, nw, RES_PER_WORD)
-    packed = g[:, :, 0].copy()
-    for k in range(1, RES_PER_WORD):
-        packed |= g[:, :, k] << np.uint32(5 * k)
-    return packed.astype(np.int32)
-
-
-def _packed_upload(db, m: int, lpad: int, pad_val: int) -> np.ndarray:
-    """[m, nw] int32 packed residues for upload, all-pad past db.n:
-    native single pass when available, else numpy."""
-    from ..io.native import pack5_rows_native
-
-    nw = -(-lpad // RES_PER_WORD)
-    nat = pack5_rows_native(db.seqs, m, lpad, nw, pad_val)
-    if nat is not None:
-        return nat
-    n = db.n
-    seqs = np.full((m, lpad), pad_val, dtype=np.int8)
-    if n:
-        seqs[:n, : db.seqs.shape[1]] = db.seqs
-    return _pack_residues(seqs)
-
-
-def _unpack_residues(packed: torch.Tensor, lmax: int) -> torch.Tensor:
-    """Device half: [N, nw] int32 -> [N, lmax] int8."""
-    npad, nw = packed.shape
-    shifts = (
-        torch.arange(RES_PER_WORD, dtype=torch.int32, device=packed.device)
-        * 5
-    ).reshape(1, 1, RES_PER_WORD)
-    res = ((packed[:, :, None] >> shifts) & 31).to(torch.int8)
-    return res.reshape(npad, nw * RES_PER_WORD)[:, :lmax].contiguous()
-
-
-def _gathered_seqs(packed: torch.Tensor, order: torch.Tensor,
-                   lmax: int) -> torch.Tensor:
-    """Key-sorted [npad, lmax] int8 residue rows, gathered and unpacked
-    in row chunks so the int32 temporaries stay bounded at scale."""
-    npad = order.shape[0]
-    out = torch.empty((npad, lmax), dtype=torch.int8, device=packed.device)
-    for s in range(0, npad, _DERIVE_CHUNK):
-        o = order[s : s + _DERIVE_CHUNK]
-        out[s : s + len(o)] = _unpack_residues(packed.index_select(0, o), lmax)
-    return out
+_DERIVE_CHUNK = 1 << 21  # rows per reversal step: bounds int64 temporaries
 
 
 def _canon_src(n: int) -> int:
@@ -210,7 +156,7 @@ def residue_planes(seqs: torch.Tensor, n_planes: int) -> torch.Tensor:
 def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
                    pad_val: int) -> torch.Tensor:
     """Each row reversed within its length, pad residues after it
-    (pallas_kernels._seqs_chunk); row-chunked like _gathered_seqs."""
+    (pallas_kernels._seqs_chunk), in row chunks of _DERIVE_CHUNK."""
     npad, lpad = seqs.shape
     pos = torch.arange(lpad, device=seqs.device)[None, :]
     out = torch.empty_like(seqs)
@@ -224,34 +170,114 @@ def _reversed_rows(seqs: torch.Tensor, lengths: torch.Tensor,
     return out
 
 
+def _check_derive(rows: torch.Tensor, order: torch.Tensor,
+                  key: torch.Tensor, lpad: int, pad_val: int) -> None:
+    dev = rows.device
+    if order.device != dev or key.device != dev:
+        raise ValueError("derive_rows: rows, order and key must share a "
+                         "device")
+    if rows.dtype != torch.int8 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("derive_rows: rows must be contiguous int8 [n, w]")
+    if (order.dtype != torch.int64 or order.dim() != 1
+            or not order.is_contiguous()):
+        raise ValueError("derive_rows: order must be a contiguous int64 row")
+    if (key.dtype not in (torch.int32, torch.int64)
+            or key.shape != order.shape or not key.is_contiguous()):
+        raise ValueError("derive_rows: key must be a contiguous int32 or "
+                         "int64 row as long as order")
+    if lpad < 0 or not 0 <= pad_val < 128:
+        raise ValueError(f"derive_rows: lpad {lpad} and pad {pad_val} "
+                         "must be non-negative, the pad an int8 code")
+
+
+def derive_rows(rows: torch.Tensor, order: torch.Tensor, key: torch.Tensor,
+                lpad: int, pad_val: int, *, indels: bool,
+                planes: bool) -> dict:
+    """The key-sorted rows of a derive, on rows' device: seqs (int8
+    [npad, lpad]: row order[i] of rows, int8 [n, w], cut or padded with
+    pad_val to lpad columns; all pad where order[i] is outside 0 .. n -
+    1, as the sentinel n), with indels rseqs (each row reversed within
+    the low 16 bits of key[i], int32 or int64 [npad], clamped to lpad;
+    pad after), and with planes their residue_planes, planes and (with
+    indels) rplanes, P = pad_val.bit_length(). CUDA tensors launch
+    csrc/derive_rows.cu, once; CPU tensors take derive_rows_plain."""
+    _check_derive(rows, order, key, lpad, pad_val)
+    if rows.device.type == "cpu":
+        return derive_rows_plain(rows, order, key, lpad, pad_val,
+                                 indels=indels, planes=planes)
+    return _derive_rows_cuda(rows, order, key, lpad, pad_val, indels, planes)
+
+
+def _derive_rows_cuda(rows, order, key, lpad, pad_val, indels,
+                      planes) -> dict:
+    dev = rows.device
+    npad = order.shape[0]
+    n_planes = pad_val.bit_length()
+    out = {"seqs": torch.empty((npad, lpad), dtype=torch.int8, device=dev)}
+    if indels:
+        out["rseqs"] = torch.empty_like(out["seqs"])
+    if planes:
+        out["planes"] = torch.empty((npad, plane_chunks(lpad), n_planes),
+                                    dtype=torch.int32, device=dev)
+        if indels:
+            out["rplanes"] = torch.empty_like(out["planes"])
+    lib = load_library("derive_rows")
+    ptr = [out[k].data_ptr() if k in out else None
+           for k in ("seqs", "rseqs", "planes", "rplanes")]
+    with torch.cuda.device(dev):
+        err = lib.derive_rows_launch(
+            rows.data_ptr(), rows.shape[0], rows.shape[1], order.data_ptr(),
+            npad, key.data_ptr(), key.element_size() // 4, lpad, pad_val,
+            n_planes, *ptr, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"derive_rows launch failed: CUDA error {err} "
+            f"({lib.derive_rows_error_string(err).decode()})")
+    _count_launch("derive_rows")
+    return out
+
+
+def derive_rows_plain(rows: torch.Tensor, order: torch.Tensor,
+                      key: torch.Tensor, lpad: int, pad_val: int, *,
+                      indels: bool, planes: bool) -> dict:
+    """derive_rows in plain PyTorch, on any device: rows cut or padded to
+    lpad with one all-pad row after them, gathered by index_select, then
+    _reversed_rows and residue_planes."""
+    n, w = rows.shape
+    src = torch.full((n + 1, lpad), pad_val, dtype=torch.int8,
+                     device=rows.device)
+    src[:n, : min(w, lpad)] = rows[:, :lpad]
+    seqs = src.index_select(0, torch.where((order >= 0) & (order < n),
+                                           order, n))
+    out = {"seqs": seqs}
+    if indels:
+        out["rseqs"] = _reversed_rows(seqs, (key & 0xFFFF).clamp(0, lpad),
+                                      pad_val)
+    if planes:
+        out["planes"] = residue_planes(seqs, pad_val.bit_length())
+        if indels:
+            out["rplanes"] = residue_planes(out["rseqs"],
+                                            pad_val.bit_length())
+    return out
+
+
 def _sorted_rows(db, order: np.ndarray, npad: int, lpad: int,
                  key: np.ndarray, device, indels: bool, planes: bool):
     """The key-sorted layout both derives share, on `device`: (order,
     key, rows). order is int64 [npad], pack_keys' permutation with the
     all-pad sentinel row n on the pads; key is the caller's host key row
-    [npad], uploaded as it is; rows holds seqs (int8 [npad, lpad], the
-    residues gathered in that order), with indels rseqs (each row
-    reversed within its length, the key's low 16 bits clamped to lpad),
-    and with planes their residue_planes, planes and (with indels)
+    [npad], uploaded as it is; rows is derive_rows' dict over the SeqDB's
+    int8 rows, uploaded as they are: seqs, with indels rseqs (the key's
+    low 16 bits the lengths), with planes planes and (with indels)
     rplanes."""
     n = db.n
-    pad_val = int(db.pad_value)
     order_full = np.full(npad, n, dtype=np.int64)
     order_full[:n] = order
     o = upload(order_full, device)
     k = upload(key, device)
-    packed = _packed_upload(db, _canon_src(n + 1), lpad, pad_val)
-    seqs = _gathered_seqs(upload(packed, device), o, lpad)
-    rows = {"seqs": seqs}
-    if indels:
-        rows["rseqs"] = _reversed_rows(seqs, (k & 0xFFFF).clamp(0, lpad),
-                                       pad_val)
-    if planes:
-        rows["planes"] = residue_planes(seqs, pad_val.bit_length())
-        if indels:
-            rows["rplanes"] = residue_planes(rows["rseqs"],
-                                             pad_val.bit_length())
-    return o, k, rows
+    seqs = upload(np.ascontiguousarray(db.seqs, dtype=np.int8), device)
+    return o, k, derive_rows(seqs, o, k, lpad, int(db.pad_value),
+                             indels=indels, planes=planes)
 
 
 def device_args_raw(db, order: np.ndarray, npad: int, lpad: int,
@@ -1904,6 +1930,11 @@ _SIGNATURES = {
                                  + [_P] * 4, _I),
         "tile_match_smem_bytes": ([_I] * 5, _I),
         "tile_match_error_string": ([_I], ctypes.c_char_p),
+    },
+    "derive_rows": {
+        "derive_rows_launch": ([_P, _L, _I, _P, _L, _P] + [_I] * 4
+                               + [_P] * 5, _I),
+        "derive_rows_error_string": ([_I], ctypes.c_char_p),
     },
     "airr_parse": {
         "airr_line_count_launch": ([_P, _L, _P, _P], _I),

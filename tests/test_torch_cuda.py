@@ -442,6 +442,106 @@ def test_tile_kernels_big_keys_equal_plain(cuda):
     _check_tiles_equal_plain(a, b, streams, cuda, 128, False)
 
 
+def _derive_db(n, w, lpad, nt, seed):
+    """A SeqDB of n rows (2 V and 2 J genes) whose int8 rows are w wide:
+    lengths 1 to min(w, lpad), pad after each row up to lpad, random
+    codes past lpad (which the derive does not read)."""
+    import numpy as np
+
+    from compairr_tpu_torch.core.db import GeneTables, SeqDB
+
+    rng = np.random.default_rng(seed)
+    alpha = 4 if nt else 20
+    seqs = rng.integers(0, alpha, (n, w), dtype=np.int8)
+    lengths = rng.integers(1, min(w, lpad) + 1, n).astype(np.int32)
+    pos = np.arange(w)[None, :]
+    seqs[(pos >= lengths[:, None]) & (pos < lpad)] = alpha
+    genes = GeneTables()
+    for name in ("V0", "V1"):
+        genes.intern_v(name)
+    for name in ("J0", "J1"):
+        genes.intern_j(name)
+    return SeqDB(
+        nucleotides=nt, seqs=seqs, lengths=lengths,
+        counts=np.ones(n, np.int64), rep_no=np.zeros(n, np.int32),
+        v_no=rng.integers(0, 2, n).astype(np.int32),
+        j_no=rng.integers(0, 2, n).astype(np.int32),
+        sequence_ids=[None] * n, keep=[None] * n, repertoire_ids=["R0"],
+        genes=genes, residues_count=int(lengths.sum()), total_dup_count=n,
+        shortest=int(lengths.min()) if n else 0,
+        longest=int(lengths.max()) if n else 0,
+    )
+
+
+@pytest.mark.parametrize("nt", [False, True], ids=["aa", "nt"])
+@pytest.mark.parametrize("lpad", [8, 24, 32, 40, 64, 96])
+def test_derive_kernel_equals_plain(cuda, lpad, nt):
+    """csrc/derive_rows.cu (C = 1 to 3; P = 5 for amino acids, 3 for
+    nucleotides) against its plain version on the CPU, through
+    device_rows_raw (int32 and int64 key rows, pad salts 0 and 2) and
+    device_args_raw, with and without indels and planes, on rows
+    narrower and wider than lpad and on sets of 0, 1 and 300 rows:
+    every returned array torch.equal, one launch a derive."""
+    import torch
+
+    from compairr_tpu_torch.ops import engine as E
+    from compairr_tpu_torch.ops import kernels as K
+
+    cpu = torch.device("cpu")
+    for w in (max(1, lpad - 5), lpad + 7):
+        for n in (0, 1, 300):
+            db = _derive_db(n, w, lpad, nt, seed=lpad + w + n)
+            order, key, npad = E.pack_keys(db, 128, True)
+            calls = [
+                (f"rows wide={wide} salt={salt}",
+                 lambda dev, ind, pl, wide=wide, salt=salt: K.device_rows_raw(
+                     db, order, npad, lpad, ind, key, salt, dev, wide=wide,
+                     planes=pl))
+                for wide in (False, True) for salt in (0, 2)]
+            calls.append(("args", lambda dev, ind, pl: K.device_args_raw(
+                db, order, npad, lpad, key, dev, indels=ind, planes=pl)))
+            for label, call in calls:
+                for indels in (False, True):
+                    for planes in (False, True):
+                        case = (label, w, n, indels, planes)
+                        want = call(cpu, indels, planes)
+                        before = K.LAUNCHES["derive_rows"]
+                        got = call(cuda, indels, planes)
+                        torch.cuda.synchronize()
+                        assert K.LAUNCHES["derive_rows"] == before + 1, case
+                        assert sorted(got) == sorted(want), case
+                        for k, v in want.items():
+                            if v is None:
+                                assert got[k] is None, (k, case)
+                                continue
+                            assert got[k].device.type == "cuda", (k, case)
+                            assert torch.equal(got[k].cpu(), v), (k, case)
+                        assert ("rplanes" in got) == (indels and planes)
+
+
+def test_derive_kernel_refuses_bad_inputs(cuda):
+    """derive_rows raises on a wrong dtype, shape, layout or device,
+    with no launch."""
+    import torch
+
+    from compairr_tpu_torch.ops import kernels as K
+
+    rows = torch.zeros((4, 8), dtype=torch.int8, device=cuda)
+    order = torch.arange(6, device=cuda)
+    key = torch.zeros(6, dtype=torch.int32, device=cuda)
+    before = dict(K.LAUNCHES)
+    for bad in ((rows.int(), order, key), (rows.t(), order, key),
+                (rows[0], order, key), (rows, order.int(), key),
+                (rows, order, key[:5]), (rows, order, key.float()),
+                (rows, order.cpu(), key)):
+        with pytest.raises(ValueError, match="derive_rows"):
+            K.derive_rows(*bad, 8, 20, indels=True, planes=True)
+    with pytest.raises(ValueError, match="derive_rows"):
+        K.derive_rows(rows, order, key, 8, 200, indels=True, planes=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before
+
+
 @pytest.mark.parametrize("spec,self_cmp,pigeonhole", [
     ((1, True, False), False, "1"),
     ((1, True, False), True, "1"),
@@ -1194,7 +1294,11 @@ def test_dense_sharded_cuda_equals_single(cuda, monkeypatch, case):
         K.reset_launches()
         got = run(d1, d2, spec, score, False, devices=devs)
         assert K.LAUNCHES[kernel] >= 3, (run.__name__, dict(K.LAUNCHES))
-        assert sum(K.LAUNCHES.values()) == K.LAUNCHES[kernel]
+        # the run's kernel and the derives alone (derive_rows, a set and
+        # shard at least)
+        assert K.LAUNCHES["derive_rows"] >= 2, dict(K.LAUNCHES)
+        assert sum(K.LAUNCHES.values()) == (K.LAUNCHES[kernel]
+                                            + K.LAUNCHES["derive_rows"])
         if case.endswith("ratio"):
             np.testing.assert_allclose(got, want, rtol=1e-12)
         else:
@@ -1330,10 +1434,10 @@ def test_bench_kernel_section_on_card(cuda, monkeypatch):
 def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
     """A -m -d 1 -i CLI job under COMPAIRR_TIMING=1 on the card: the
     derive's and the count's uploads count their bytes on their laps
-    (engine.rows_raw, engine.count), every extract span (one a class)
-    its worklist's and offsets' upload and its error flag's copy-back,
-    the one decode span the pairs' copy-back, and the job counts its
-    kernel library load."""
+    (engine.rows_raw, engine.count), the derive its one derive_rows
+    launch, every extract span (one a class) its worklist's and offsets'
+    upload and its error flag's copy-back, the one decode span the
+    pairs' copy-back, and the job counts its kernel library loads."""
     from compairr_tpu_torch import cli
     from compairr_tpu_torch.ops import kernels as K
     from compairr_tpu_torch.utils import trace
@@ -1359,10 +1463,14 @@ def test_traced_cli_job_on_the_card(cuda, monkeypatch, tmp_path):
     for s in spans:
         by.setdefault(s.name, []).append(s)
     (job,) = by["job"]
-    # tile_match, and airr_parse where the parse took the card route
+    # derive_rows and tile_match, and airr_parse where the parse took the
+    # card route
     parses = by["io.parse"]
-    assert job.counts["kernel_loads"] == 1 + any(
+    assert job.counts["kernel_loads"] == 2 + any(
         s.counts["route"] == "card" for s in parses)
+    # a self-comparison shares one derive: one derive_rows launch
+    (derive,) = by["engine.rows_raw"]
+    assert derive.counts["derive_launches"] == 1
     (fp,) = by["engine.find_pairs"]
     assert fp.counts["route"] == "tiles" and fp.counts["tile"] == 512
     for name in ("engine.rows_raw", "engine.count", "kernels.extract"):

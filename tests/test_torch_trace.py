@@ -106,6 +106,9 @@ def test_counts_agree_with_the_job(traced, pair):
     assert diag.counts["pairs"] == written == acc.counts["pairs"]
     # two sets: no diagonal is added, so the decoded pairs are all
     assert dist.counts["pairs"] == written
+    # the derive's plain version on the CPU launches nothing
+    (derive,) = _named(spans, "engine.rows_raw")
+    assert derive.counts["derive_launches"] == 0
     assert sum(s.counts["pairs"] for s in _named(spans, "engine.decode")) \
         == written
     (wl,) = _named(spans, "engine.worklist")
