@@ -6,8 +6,8 @@ comparison as the program's jobs. Each must come out not correct.
 
 For each seed: make the cell's inputs, work out the reference's result,
 then each control's (portbench/reference/<reference>.py CONTROLS:
-float32 scores and sums in place of float64, or the indel matches left
-out), and print the numbers compared (cells_off) as JSON lines. It runs
+float32 scores and sums in place of float64, the indel matches left
+out, or -d 1 in place of -d 2), and print the numbers compared (cells_off) as JSON lines. It runs
 no program code and needs no card; run it on the machine of the cell.
 """
 

@@ -10,7 +10,9 @@ The cohort draw is a frozen copy of compairr_tpu_torch/bench.py
 synth_arrays (itself the JAX package's generator): with gene_skew 0 it
 gives the same rows at the same seed, which a test holds. The planting
 steps are frozen copies of bench.py _plant_near_dups (one substitution)
-and chip_smoke.py with_planted (one indel), on these dicts.
+and chip_smoke.py with_planted (one indel), on these dicts; a set that
+names plant_substitution2 gets a third step of the harness's own (two
+substitutions).
 """
 
 from __future__ import annotations
@@ -81,6 +83,33 @@ def plant_substitutions(s: dict, frac: float, seed: int,
     s["seqs"][dst, pos] = (s["seqs"][dst, pos] + 1) % ALPHA
 
 
+def plant_substitutions2(s: dict, frac: float, seed, first: int) -> None:
+    """Copy about frac of the set's rows over others of the same set (V,
+    J and length with them) with two substitutions at two distinct
+    positions in the first `first` residues, each to another residue, in
+    place: each planted pair is exactly two substitutions apart. src and
+    dst are drawn as plant_substitutions draws them. A row shorter than
+    `first` (a deletion planted into a row of the shortest length) takes
+    its positions among its own residues."""
+    rng = np.random.default_rng(seed)
+    n = len(s["lengths"])
+    k = max(int(n * frac), 1)
+    src = rng.choice(n, size=k, replace=False)
+    dst = rng.choice(n, size=k, replace=False)
+    span = np.minimum(s["lengths"][src], first).astype(np.int64)
+    if span.min() < 2:
+        raise ValueError("two substitutions need rows of 2 residues")
+    s["seqs"][dst] = s["seqs"][src]
+    s["lengths"][dst] = s["lengths"][src]
+    s["v_no"][dst] = s["v_no"][src]
+    s["j_no"][dst] = s["j_no"][src]
+    p1 = rng.integers(0, span)
+    p2 = (p1 + rng.integers(1, span)) % span
+    for pos in (p1, p2):
+        step = rng.integers(1, ALPHA, size=k)
+        s["seqs"][dst, pos] = (s["seqs"][dst, pos] + step) % ALPHA
+
+
 def _edit(row: list, kind: int, rng) -> list:
     """One edit of chip_smoke.py with_planted: 0 substitution, 1
     deletion, 2 insertion, at a random position."""
@@ -130,8 +159,9 @@ def plant_indels(s: dict, frac: float, seed: int) -> None:
 def make_sets(config: dict, seed: int) -> dict:
     """Every set of a configuration (config["sets"], in order) from one
     seed: the cohort's rows from the seed itself, each later step from
-    (seed, step number). Rows are then grouped by repertoire, as in a
-    cohort's files put one after another."""
+    (seed, step number); the two-substitution step only where the set
+    names plant_substitution2. Rows are then grouped by repertoire, as
+    in a cohort's files put one after another."""
     out: dict = {}
     for name, p in config["sets"].items():
         if p["kind"] == "cohort":
@@ -139,6 +169,9 @@ def make_sets(config: dict, seed: int) -> dict:
             plant_substitutions(s, p["plant_substitution"], [seed, 1],
                                 p["length_min"])
             plant_indels(s, p["plant_indel"], [seed, 2])
+            if "plant_substitution2" in p:
+                plant_substitutions2(s, p["plant_substitution2"],
+                                     [seed, 3], p["length_min"])
         else:
             raise ValueError(f"set {name}: unknown kind {p['kind']!r}")
         out[name] = s

@@ -1,6 +1,6 @@
-"""decode_s: the tile route's host decode of extract_tiles' bit words
-into pairs (the spans engine.decode, one a slab), mean a window job
-(s)."""
+"""decode_s: the tile route's copy back of extract_tiles' pairs (the span
+engine.decode: each card's int32 pairs of original indices joined,
+copied to the host once and widened to int64), mean a window job (s)."""
 
 from portbench.spans import mean_span_s, program_spans
 

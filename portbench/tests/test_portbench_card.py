@@ -1,5 +1,5 @@
-"""Each cell's full run on the card, a short window: exit 0 and
-correct. Run on the card machine with
+"""Each cell's full run on the card, a short window: exit 0, correct,
+and every job on the traffic's card kernels. Run on the card machine with
     python -m pytest -p no:cacheprovider -m cuda portbench/tests
 """
 
@@ -10,12 +10,14 @@ import sys
 
 import pytest
 
+from portbench import run
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["keck20.m-d1i"])
+@pytest.mark.parametrize("workload", ["keck20.m-d1i", "keck20d2.m-d2-dense"])
 def test_cell_on_the_card(workload):
     import torch
 
@@ -29,4 +31,5 @@ def test_cell_on_the_card(workload):
     res = json.loads(p.stdout.splitlines()[-1])
     assert res["correct"] and res["device"]["platform"] == "gpu"
     assert res["checks"]["jobs_off_card"] == {"value": 0, "limit": 0}
-    assert res["launches_per_job"]["count_tiles"] >= 1
+    for kernel in run.cell(ROOT, workload)["traffic"]["card_kernels"]:
+        assert res["launches_per_job"][kernel] >= 1
